@@ -1,0 +1,39 @@
+"""audio_modem_tpu_torch — the OFDM acoustic modem in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``audio_modem_tpu`` (JAX/Pallas), which stays beside it as the
+reference. Module names follow the JAX package so each counterpart is easy
+to find:
+
+  tables     per-profile constant tables (DFT matrices, templates, signs)
+  ops/       bits, constellations, active-bin DFT
+  sync       preprocess, Schmidl-Cox scan with first-peak commit, xcorr refine
+  phy        CP strip, modulate, channel estimate, equalize, demodulate
+  framing    payload codecs (host) and batched frame synthesis (device)
+  kernels/   hand-written CUDA kernels, each beside its plain PyTorch version
+  parallel/  batched multi-stream decode and the turbo receive round
+
+The wire format keeps one definition: profiles, modes, the JS-LCG, CRC-32
+and Reed-Solomon come from the JAX package's jax-free modules.
+
+Everything runs in float32. TF32 is off for matrix products and
+convolutions: the plain reference must not round to ~3 decimal digits.
+"""
+
+import torch
+
+from audio_modem_tpu.configs import MODES, ModemMode, OfdmProfile
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def assert_full_fp32() -> None:
+    """Raise if something re-enabled TF32 since this package was imported."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is enabled; the port computes in full float32")
+
+
+assert_full_fp32()
+
+__all__ = ["MODES", "ModemMode", "OfdmProfile", "assert_full_fp32"]

@@ -1,0 +1,124 @@
+"""Build the CUDA sources under ``csrc/`` into one shared library with a
+plain C interface, and load it with ctypes.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/torch_kernels/libamtpu_kernels.so csrc/*.cu
+
+The library lands in ``build/torch_kernels/`` at the root of the checkout at
+first use and is rebuilt when the hash of the sources or flags changes. No
+PyTorch header is included, so a build takes seconds. Every C entry point
+returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libamtpu_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures: every pointer and the stream are c_void_p.
+_SIGNATURES = {
+    "amtpu_decode_fused": [
+        _P, _P, _P, _I, _I,          # signals, n_valid, min_pos, B, T
+        _P, _F,                      # pre1, t_energy
+        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _I, _I,                      # bps, max_syms
+        _I, _I, _I,                  # nb_p, nb_e, n_pos
+        _P, _P, _P,                  # scratch: block_p, block_e, metric
+        _P, _P, _P, _P, _P,          # out: start, coarse, cmetric, fine, detected
+        _P, _P, _P,                  # out: bits, ch_re, ch_im
+        _P,                          # stream
+    ],
+    "amtpu_decode_chunks_fused": [
+        _P, _I, _I,                  # frames, B, T
+        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _I, _I,                      # bps, n_sym
+        _P,                          # out: bits
+        _P,                          # stream
+    ],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _build(lib_path: Path, stamp: Path, digest: str) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib_path = BUILD_DIR / LIB_NAME
+        stamp = BUILD_DIR / "sources.sha256"
+        digest = _digest()
+        if not (lib_path.exists() and stamp.exists() and stamp.read_text() == digest):
+            _build(lib_path, stamp, digest)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.amtpu_error_string.argtypes = [ctypes.c_int]
+        lib.amtpu_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, name: str) -> None:
+    if code != 0:
+        msg = lib.amtpu_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code}: {msg}")

@@ -1,0 +1,176 @@
+"""Receive kernels and their plain versions (counterpart of
+audio_modem_tpu/kernels/receive.py).
+
+``decode_fused`` (kernel A, csrc/receive.cu ``receive_kernel``) runs the
+whole receive per stream: preprocess, strided Schmidl-Cox scan with
+first-peak commit, xcorr refine, CE, demod. ``decode_chunks_fused``
+(kernel B, ``chunk_kernel``) demodulates frame-aligned chunk frames. Each
+wrapper checks its inputs, allocates outputs and scratch with
+``torch.empty`` and launches on the current stream; on CPU tensors it runs
+the plain version beside it (``*_reference``), built from sync and phy.
+
+Output contract of ``decode_fused`` (as the JAX kernel's): start, coarse
+int32 [B]; coarse_metric, fine_metric float32 [B]; detected bool [B]; bits
+int8 [B, max_syms * bits_per_symbol]; ch_re, ch_im float32 [B, n_active].
+Bits of symbols past a frame's end are junk that every consumer truncates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from audio_modem_tpu.configs import ModemMode
+from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
+from audio_modem_tpu_torch.ops.constellations import BPS, bits_per_symbol, qam_scale
+from audio_modem_tpu_torch.tables import Tables, profile_tables
+
+
+def decode_fused_reference(
+    signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Plain version of ``decode_fused``: the batched receive pipeline of
+    parallel/batch.py::_batch_decode_signals_xla in the JAX package."""
+    p = mode.profile
+    sym = p.symbol_len
+    b = signals.shape[0]
+    nv = n_valid.to(torch.int32)
+    pre = sync.preprocess(signals, nv)
+    coarse, cmetric = sync.detect_preamble(pre, p, nv, min_pos=min_pos.to(torch.int32), stride=sync.COARSE_STRIDE)
+    start, fine = sync.refine_xcorr(pre, torch.clamp(coarse, min=0), p, nv)
+    ch_re, ch_im = phy.estimate_channel(sync.gather_windows(pre, start + 2 * sym, sym), p)
+    data = sync.gather_windows(pre, start + 3 * sym, max_syms * sym).reshape(b, max_syms, sym)
+    return {
+        "start": start,
+        "coarse": coarse,
+        "coarse_metric": cmetric,
+        "fine_metric": fine,
+        "detected": (coarse >= 0) & (fine >= sync.XCORR_THRESHOLD),
+        "bits": phy.demodulate(data, ch_re, ch_im, mode),
+        "ch_re": ch_re,
+        "ch_im": ch_im,
+    }
+
+
+def decode_chunks_fused_reference(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
+    """Plain version of ``decode_chunks_fused``: per-frame peak
+    normalization (app.js:918-925), CE at 2*sym, demod of n_sym symbols
+    (modem.js:770-803)."""
+    p = mode.profile
+    sym = p.symbol_len
+    frames = frames.to(torch.float32)
+    mx = frames.abs().amax(dim=-1, keepdim=True)
+    big = mx > 1e-6
+    frames = torch.where(big, frames / torch.where(big, mx, 1.0), frames)
+    need = (3 + n_sym) * sym
+    if frames.shape[1] < need:
+        frames = torch.nn.functional.pad(frames, (0, need - frames.shape[1]))
+    ch_re, ch_im = phy.estimate_channel(frames[:, 2 * sym : 3 * sym], p)
+    data = frames[:, 3 * sym : need].reshape(-1, n_sym, sym)
+    return phy.demodulate(data, ch_re, ch_im, mode)
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous {dtype} {shape}, got {t.dtype} {tuple(t.shape)} "
+            f"contiguous={t.is_contiguous()}"
+        )
+
+
+def _table_args(tabs: Tables, mode: ModemMode) -> list:
+    p = mode.profile
+    name = mode.constellation
+    return [
+        tabs.rx_active.data_ptr(), tabs.ce_known.data_ptr(), tabs.rx_data.data_ptr(),
+        tabs.rx_pilot.data_ptr(), tabs.data_pos.data_ptr(), tabs.pilot_pos.data_ptr(),
+        p.fft_size, p.cp_len, p.num_active_subs, p.num_data_subs, len(p.pilots),
+        qam_scale(name) if BPS[name] > 2 else 1.0, BPS[name],
+    ]
+
+
+def _scan_geometry(t: int, mode: ModemMode) -> tuple[int, int, int]:
+    """(prod blocks, energy blocks, scan positions) of the strided scan over
+    a T-sample row, as sync.detect_preamble sizes them."""
+    half = mode.profile.fft_size // 2
+    stride = sync.COARSE_STRIDE
+    if half // stride != 16:
+        raise ValueError("the kernel's scan window is 16 blocks of 16 samples (fft 512)")
+    hs = half // stride
+    nb_p = (t - half) // stride
+    nb_e = t // stride
+    return nb_p, nb_e, min(nb_p - hs + 1, nb_e - 2 * hs + 1)
+
+
+def decode_fused(
+    signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Batched full receive: [B, T] raw windows, [B] valid lengths and
+    minimum preamble positions -> the dict of the module docstring."""
+    if not runs_on_kernel(signals, n_valid, min_pos):
+        return decode_fused_reference(signals, n_valid, min_pos, mode, max_syms)
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    p = mode.profile
+    b, t = signals.shape
+    _check(signals, "signals", torch.float32, (b, t))
+    _check(n_valid, "n_valid", torch.int32, (b,))
+    _check(min_pos, "min_pos", torch.int32, (b,))
+    if p.symbol_len > 768 or p.cp_len > 256:
+        raise ValueError("kernel A's shared refine buffers hold cp <= 256, sym <= 768")
+    nb_p, nb_e, n_pos = _scan_geometry(t, mode)
+    if n_pos < 1:
+        raise ValueError(f"window of {t} samples is too short to scan")
+    dev = signals.device
+    tabs = profile_tables(mode, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    block_p = torch.empty(b, nb_p, **f32)
+    block_e = torch.empty(b, nb_e, **f32)
+    metric = torch.empty(b, n_pos, **f32)
+    out = {
+        "start": torch.empty(b, **i32),
+        "coarse": torch.empty(b, **i32),
+        "coarse_metric": torch.empty(b, **f32),
+        "fine_metric": torch.empty(b, **f32),
+        "detected": torch.empty(b, dtype=torch.bool, device=dev),
+        "bits": torch.empty(b, max_syms * bits_per_symbol(mode), dtype=torch.int8, device=dev),
+        "ch_re": torch.empty(b, p.num_active_subs, **f32),
+        "ch_im": torch.empty(b, p.num_active_subs, **f32),
+    }
+    lib = load_library()
+    code = lib.amtpu_decode_fused(
+        signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
+        tabs.pre1.data_ptr(), tabs.t_energy,
+        *_table_args(tabs, mode),
+        max_syms, nb_p, nb_e, n_pos,
+        block_p.data_ptr(), block_e.data_ptr(), metric.data_ptr(),
+        *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
+        *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(lib, code, "decode_fused")
+    count_launch("decode_fused")
+    return out
+
+
+def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
+    """Frame-aligned decode: [B, >= (3 + n_sym) * sym] frames starting at
+    their preamble -> hard bits int8 [B, n_sym * bits_per_symbol]."""
+    if not runs_on_kernel(frames):
+        return decode_chunks_fused_reference(frames, mode, n_sym)
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    b, t = frames.shape
+    _check(frames, "frames", torch.float32, (b, t))
+    dev = frames.device
+    tabs = profile_tables(mode, dev)
+    bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
+    lib = load_library()
+    code = lib.amtpu_decode_chunks_fused(
+        frames.data_ptr(), b, t, *_table_args(tabs, mode), n_sym, bits.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(lib, code, "decode_chunks_fused")
+    count_launch("decode_chunks_fused")
+    return bits

@@ -1,0 +1,91 @@
+"""Batched multi-stream decode (counterpart of
+audio_modem_tpu/parallel/batch.py; BASELINE config 5).
+
+The full receive goes through kernel A (``kernels.receive.decode_fused``)
+at every window length: Hopper has no VMEM gate, so there is no long-frame
+route. The frame-aligned demod goes through kernel B. The cadence-predicted
+decode (refine + CE + demod) is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from audio_modem_tpu.configs import ModemMode
+from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fused
+# The plain receive pipeline (counterpart of _batch_decode_signals_xla) is
+# kernel A's plain version, kept beside the kernel in kernels/receive.py.
+from audio_modem_tpu_torch.kernels.receive import decode_fused_reference as _batch_decode_signals_plain  # noqa: F401
+from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
+from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+
+
+def batch_decode_chunk_frames(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
+    """Frame-aligned batch decode: [B, >= (3 + n_sym) * sym] -> bits [B, n_bits]
+    (batched decodeChunkFrame, modem.js:770-803)."""
+    return decode_chunks_fused(frames, mode, n_sym)
+
+
+def batch_decode_chunk_frames_packed(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
+    """Frame-aligned batch decode to packed bytes [B, n_bytes] uint8, with
+    the repetition vote and MSB-first packing on the device."""
+    b = batch_decode_chunk_frames(frames, mode, n_sym)[:, : n_sym * bits_per_symbol(mode)]
+    if mode.repetition > 1:
+        b = majority_vote(b, mode.repetition)
+    return bits_to_bytes(b)
+
+
+def batch_decode_signals(
+    signals: torch.Tensor,
+    n_valid: torch.Tensor,
+    mode: ModemMode,
+    max_syms: int,
+    min_pos: torch.Tensor | None = None,
+) -> dict:
+    """Full receive over [B, T] padded windows with [B] valid lengths;
+    ``min_pos`` ignores detections before a per-stream position (the
+    streaming runtime's resume). Returns the ``decode_fused`` dict."""
+    if min_pos is None:
+        min_pos = torch.zeros(signals.shape[0], dtype=torch.int32, device=signals.device)
+    return decode_fused(signals, n_valid.to(torch.int32), min_pos.to(torch.int32), mode, max_syms)
+
+
+def preprocess_extend(signals: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int) -> torch.Tensor:
+    """preprocess + zero-extension by (3 + max_syms) symbols, done once per
+    round for all predicted slots."""
+    sig = sync.preprocess(signals, n_valid)
+    return torch.nn.functional.pad(sig, (0, (3 + max_syms) * mode.profile.symbol_len))
+
+
+def batch_decode_predicted(
+    ext: torch.Tensor, coarse: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Refine + CE + demod at predicted coarse positions [B] over a
+    ``preprocess_extend``'ed batch: no detection scan. The sender's exact
+    cadence puts frame k+1 at start_k + cadence up to clock drift, well
+    inside the refine radius; detection rests on the xcorr metric alone."""
+    p = mode.profile
+    sym = p.symbol_len
+    start, fine = sync.refine_xcorr(ext, coarse, p, n_valid)
+    ch_re, ch_im = phy.estimate_channel(sync.gather_windows(ext, start + 2 * sym, sym), p)
+    data = sync.gather_windows(ext, start + 3 * sym, max_syms * sym).reshape(-1, max_syms, sym)
+    return {
+        "start": start,
+        "detected": fine >= sync.XCORR_THRESHOLD,
+        "bits": phy.demodulate(data, ch_re, ch_im, mode),
+    }
+
+
+def pad_signals(signals: "list[np.ndarray]", pad_len: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Ragged signal list -> ([B, pad_len] float32, [B] int32 valid lengths);
+    the padded length is rounded up to a multiple of 128, as in the JAX
+    package, so both receive the same shapes."""
+    n_valid = np.asarray([len(s) for s in signals], dtype=np.int32)
+    t = int(pad_len or int(n_valid.max()))
+    t = -(-t // 128) * 128
+    out = np.zeros((len(signals), t), dtype=np.float32)
+    for i, s in enumerate(signals):
+        out[i, : len(s)] = s[:t]
+    return out, n_valid
