@@ -8,8 +8,12 @@ to find:
   tables     per-profile constant tables (DFT matrices, templates, signs)
   ops/       bits, constellations, active-bin DFT
   sync       preprocess, Schmidl-Cox scan with first-peak commit, xcorr refine
-  phy        CP strip, modulate, channel estimate, equalize, demodulate
-  framing    payload codecs (host) and batched frame synthesis (device)
+             and detector
+  phy        CP strip, modulate, channel estimate, equalize, demodulate, soft
+             metrics, timing-tracked demod, EVM
+  framing    payload codecs (host), single and batched frame synthesis (device)
+  decoder    single-signal and chunk-frame decode with the retry ladder
+  api        encode / decode entry points
   kernels/   hand-written CUDA kernels, each beside its plain PyTorch version
   parallel/  batched multi-stream decode and the turbo receive round
 

@@ -1,0 +1,85 @@
+"""Public encode / decode surface (counterpart of audio_modem_tpu/api.py),
+mirroring the reference app layer:
+
+  encode()         <= 32 KB files as one legacy frame, larger ones chunked
+                   (startSend, app.js:124-135)
+  encode_legacy()  buildTransmitSignal (modem.js:498-555)
+  encode_chunked() metadata frame + one data frame per chunk (app.js:201-303)
+  decode()         decodeReceivedSignal (modem.js:557-654)
+
+Same signatures as the JAX package plus a keyword ``device``: signals are
+synthesized on it and decoded on it (see ``decoder``).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator
+
+import numpy as np
+import torch
+
+from audio_modem_tpu.configs import CHUNK_THRESHOLD, ModemMode, get_mode
+from audio_modem_tpu_torch import decoder, framing
+from audio_modem_tpu_torch.framing import ParseResult
+
+
+def _resolve(mode: str | ModemMode) -> ModemMode:
+    return mode if isinstance(mode, ModemMode) else get_mode(mode)
+
+
+def encode_legacy(
+    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cpu"
+) -> torch.Tensor:
+    """Single-frame TX signal (modem.js:498-555). ``fec=True`` wraps the
+    payload in RS(255,223) (extension)."""
+    return framing.build_transmit_signal(data, _resolve(mode), file_name, fec=fec, device=device)
+
+
+def encode_chunked(
+    data: bytes,
+    mode: str | ModemMode = "QPSK",
+    file_name: str = "file",
+    fec: bool = False,
+    batch: int = 16,
+    device="cpu",
+) -> Iterator[torch.Tensor]:
+    """Chunked TX: yields the metadata frame, then one frame per chunk
+    (playChunkedFrames, app.js:201-303). Data frames are synthesized in
+    batches of up to ``batch`` equal-length chunks; a short last chunk forms
+    its own batch."""
+    m = _resolve(mode)
+    chunk_size = m.chunk_size
+    total_chunks = -(-len(data) // chunk_size)
+    yield framing.build_metadata_frame(total_chunks, len(data), chunk_size, file_name, m, fec=fec, device=device)
+    seq = 0
+    while seq < total_chunks:
+        group: list[bytes] = []
+        while len(group) < batch and seq + len(group) < total_chunks:
+            i = seq + len(group)
+            chunk = data[i * chunk_size : (i + 1) * chunk_size]
+            if group and len(chunk) != len(group[0]):
+                break
+            group.append(chunk)
+        yield from framing.build_data_chunk_frames(group, seq, m, fec=fec, device=device)
+        seq += len(group)
+
+
+def encode(
+    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cpu"
+) -> list[torch.Tensor]:
+    """Size-routed encode (startSend, app.js:124-135): the list of frame
+    signals (one for the legacy path)."""
+    if len(data) <= CHUNK_THRESHOLD:
+        return [encode_legacy(data, mode, file_name, fec=fec, device=device)]
+    return list(encode_chunked(data, mode, file_name, fec=fec, device=device))
+
+
+def decode(
+    signal: "np.ndarray | torch.Tensor",
+    mode: str | ModemMode = "QPSK",
+    track_timing: bool = False,
+    device="cpu",
+) -> tuple[ParseResult, decoder.DecodeInfo | None]:
+    """Full-signal decode of one frame (modem.js:557-654) on ``device``.
+    ``track_timing`` turns on the clock-drift timing tracker (extension)."""
+    return decoder.decode_signal(signal, _resolve(mode), track_timing=track_timing, device=device)

@@ -1,10 +1,13 @@
-// Receive kernels for Hopper (sm_90a): the full per-stream receive (kernel A)
-// and the frame-aligned chunk demod (kernel B), with a plain C interface for
-// ctypes (see kernels/_build.py). One CTA per stream or frame.
+// Receive kernels for Hopper (sm_90a): the full per-stream receive (kernel A),
+// the frame-aligned chunk demod (kernel B) and the streaming demod of a data
+// region whose channel is already known, with a plain C interface for ctypes
+// (see kernels/_build.py). A and B run one CTA per stream or frame; the
+// streaming demod one CTA per (group of kGroup symbols, stream).
 //
-// Both kernels end in the same demod (CE, then per symbol: DFT at the data and
-// pilot bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as
-// device functions. Everything is float32. Where a sum decides the coarse
+// All three end in the same demod (per symbol: DFT at the data and pilot
+// bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as the
+// device function demod_group, so one rounding discipline serves all three.
+// Everything is float32. Where a sum decides the coarse
 // sync (preprocess mean, scan block and window sums) the order of additions
 // is the one the plain PyTorch version (sync.py) uses, and the arithmetic
 // goes through the _rn intrinsics so nvcc cannot contract it into FMAs: the
@@ -19,12 +22,13 @@ namespace {
 
 constexpr int kThreadsA = 1024;  // kernel A: one CTA per stream
 constexpr int kThreadsB = 512;   // kernel B: one CTA per frame
+constexpr int kThreadsS = 256;   // stream demod: one CTA per (symbol group, stream)
 constexpr int kSumLanes = 1024;  // sync.SUM_LANES
 constexpr int kStride = 16;      // sync.COARSE_STRIDE
 constexpr int kHalfBlocks = 16;  // (fft / 2) / kStride for fft = 512
 constexpr int kMaxSym = 768;     // longest symbol of any profile (narrowband)
 constexpr int kMaxRegion = 6 * 256 + 1 + kMaxSym - 1;  // refine region at cp = 256
-constexpr int kGroup = 4;        // data symbols per demod pass
+constexpr int kGroup = 8;        // data symbols per demod pass (and per stream-demod CTA)
 constexpr float kAutocorrThreshold = 0.5f;
 constexpr float kMinEnergy = 0.01f;
 constexpr float kXcorrThreshold = 0.1f;
@@ -125,99 +129,139 @@ int demod_smem_floats(const Demod& d) {
          kGroup * (2 * d.nd + 2 * d.npi) + kGroup;
 }
 
-// Channel estimate at frame offset 2*sym + cp, then n_sym data symbols at
-// 3*sym + cp + k*sym, from sample source ``src`` (reads 0 out of range).
-// Bits go out bin-major, MSB first within a bin (phy.demodulate's order).
-template <class Src>
-__device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
-                            signed char* bits, float* ch_re_out, float* ch_im_out,
-                            float* smem) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int fft = d.fft, na = d.n_active, nd = d.nd, npi = d.npi, bps = d.bps;
-  const int sym = fft + d.cp;
-  const int ncol = 2 * nd + 2 * npi;
-  float* ch = smem;                     // [2*na]: re | im
-  float* hd = ch + 2 * na;              // [3*nd]: re | im | den (0 = passthrough)
-  float* hp = hd + 3 * nd;              // [3*npi]
-  float* body = hp + 3 * npi;           // [kGroup*fft]
-  float* spec = body + kGroup * fft;    // [kGroup*ncol]
-  float* phi = spec + kGroup * ncol;    // [kGroup]
+// The demod's shared-memory regions, carved from one dynamic buffer of
+// demod_smem_floats(d) floats.
+struct DemodSmem {
+  float* ch;    // [2*na]: re | im
+  float* hd;    // [3*nd]: re | im | den (0 = passthrough)
+  float* hp;    // [3*npi]
+  float* body;  // [kGroup*fft]
+  float* spec;  // [kGroup*ncol]
+  float* phi;   // [kGroup]
+};
 
-  // CE: H = DFT(body) * known sign (phy.estimate_channel)
-  for (int n = tid; n < fft; n += nt) body[n] = src(base + 2 * sym + d.cp + n);
-  __syncthreads();
-  for (int c = tid; c < 2 * na; c += nt) {
-    float acc = 0.0f;
-    for (int n = 0; n < fft; ++n) acc = fmaf(body[n], d.rx_active[n * 2 * na + c], acc);
-    ch[c] = __fmul_rn(acc, d.ce_known[c < na ? c : c - na]);
-  }
-  __syncthreads();
-  for (int a = tid; a < na; a += nt) {
-    if (ch_re_out) ch_re_out[a] = ch[a];
-    if (ch_im_out) ch_im_out[a] = ch[na + a];
-  }
-  for (int j = tid; j < nd + npi; j += nt) {
+__device__ DemodSmem carve(const Demod& d, float* smem) {
+  DemodSmem s;
+  s.ch = smem;
+  s.hd = s.ch + 2 * d.n_active;
+  s.hp = s.hd + 3 * d.nd;
+  s.body = s.hp + 3 * d.npi;
+  s.spec = s.body + kGroup * d.fft;
+  s.phi = s.spec + kGroup * (2 * d.nd + 2 * d.npi);
+  return s;
+}
+
+// EQ tables at the data and pilot positions from the active-bin channel in
+// s.ch: H, and |H|^2 with 0 marking passthrough (|H|^2 <= 1e-10).
+__device__ void eq_tables(const Demod& d, const DemodSmem& s) {
+  const int nd = d.nd, npi = d.npi, na = d.n_active;
+  for (int j = threadIdx.x; j < nd + npi; j += blockDim.x) {
     const bool data = j < nd;
     const int pos = data ? d.data_pos[j] : d.pilot_pos[j - nd];
-    const float hr = ch[pos], hi = ch[na + pos];
+    const float hr = s.ch[pos], hi = s.ch[na + pos];
     const float mag = __fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi));
-    float* h = data ? hd : hp;
+    float* h = data ? s.hd : s.hp;
     const int m = data ? nd : npi, i = data ? j : j - nd;
     h[i] = hr;
     h[m + i] = hi;
     h[2 * m + i] = mag > 1e-10f ? mag : 0.0f;
   }
   __syncthreads();
+}
 
-  for (int k0 = 0; k0 < n_sym; k0 += kGroup) {
-    const int g = min(kGroup, n_sym - k0);
-    for (int i = tid; i < g * fft; i += nt) {
-      const int k = i / fft, n = i - k * fft;
-      body[i] = src(base + 3 * sym + d.cp + (k0 + k) * sym + n);
-    }
-    __syncthreads();
-    // DFT at the data and pilot bins: one dot product of fft taps per column
-    for (int i = tid; i < g * ncol; i += nt) {
-      const int k = i / ncol, c = i - k * ncol;
-      const float* tab = c < 2 * nd ? d.rx_data + c : d.rx_pilot + (c - 2 * nd);
-      const int w = c < 2 * nd ? 2 * nd : 2 * npi;
-      const float* b = body + k * fft;
-      float acc = 0.0f;
-      for (int n = 0; n < fft; ++n) acc = fmaf(b[n], tab[n * w], acc);
-      spec[i] = acc;
-    }
-    __syncthreads();
-    // pilot phase: mean of Im/Re over pilots with |Re| > 1e-6
-    if (tid < g) {
-      const float* s = spec + tid * ncol + 2 * nd;
-      float sum = 0.0f;
-      int cnt = 0;
-      for (int j = 0; j < npi; ++j) {
-        float pr, pi;
-        equalize(s[j], s[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f,
-                 pr, pi);
-        if (fabsf(pr) > 1e-6f) {
-          sum = __fadd_rn(sum, __fdiv_rn(pi, pr));
-          ++cnt;
-        }
-      }
-      phi[tid] = cnt > 0 ? __fdiv_rn(sum, (float)cnt) : 0.0f;
-    }
-    __syncthreads();
-    for (int i = tid; i < g * nd; i += nt) {
-      const int k = i / nd, j = i - k * nd;
-      const float* s = spec + k * ncol;
-      float dr, di;
-      equalize(s[j], s[nd + j], hd[j], hd[nd + j], hd[2 * nd + j], hd[2 * nd + j] > 0.0f, dr, di);
-      const float p = phi[k];
-      const float cr = __fadd_rn(dr, __fmul_rn(di, p));
-      const float ci = __fsub_rn(di, __fmul_rn(dr, p));
-      const int idx = demap_index(cr, ci, bps, d.qam_scale);
-      signed char* out = bits + ((size_t)(k0 + k) * nd + j) * bps;
-      for (int b = 0; b < bps; ++b) out[b] = (signed char)((idx >> (bps - 1 - b)) & 1);
-    }
-    __syncthreads();
+// Data symbols k0 .. k0+g-1 (g <= kGroup), symbol k's CP at data_base +
+// k*sym of sample source ``src``: DFT at the data and pilot bins (one column
+// per thread, fft taps summed in order by FMA, the table read once for all
+// g bodies), pilot phase, ZF EQ, demap, int8 bits. ``bits`` is the row's
+// first bit; bits go out bin-major, MSB first within a bin (phy.demodulate's
+// order). Needs eq_tables first.
+template <class Src>
+__device__ void demod_group(const Src& src, int data_base, const Demod& d, int k0, int g,
+                            signed char* bits, const DemodSmem& s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int fft = d.fft, nd = d.nd, npi = d.npi, bps = d.bps;
+  const int sym = fft + d.cp;
+  const int ncol = 2 * nd + 2 * npi;
+  for (int i = tid; i < kGroup * fft; i += nt) {
+    const int k = i / fft, n = i - k * fft;
+    s.body[i] = k < g ? src(data_base + (k0 + k) * sym + d.cp + n) : 0.0f;
   }
+  __syncthreads();
+  for (int c = tid; c < ncol; c += nt) {
+    const float* tab = c < 2 * nd ? d.rx_data + c : d.rx_pilot + (c - 2 * nd);
+    const int w = c < 2 * nd ? 2 * nd : 2 * npi;
+    float acc[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) acc[k] = 0.0f;
+    for (int n = 0; n < fft; ++n) {
+      const float t = tab[n * w];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) acc[k] = fmaf(s.body[k * fft + n], t, acc[k]);
+    }
+    for (int k = 0; k < g; ++k) s.spec[k * ncol + c] = acc[k];
+  }
+  __syncthreads();
+  // pilot phase: mean of Im/Re over pilots with |Re| > 1e-6
+  if (tid < g) {
+    const float* sp = s.spec + tid * ncol + 2 * nd;
+    const float* hp = s.hp;
+    float sum = 0.0f;
+    int cnt = 0;
+    for (int j = 0; j < npi; ++j) {
+      float pr, pi;
+      equalize(sp[j], sp[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f,
+               pr, pi);
+      if (fabsf(pr) > 1e-6f) {
+        sum = __fadd_rn(sum, __fdiv_rn(pi, pr));
+        ++cnt;
+      }
+    }
+    s.phi[tid] = cnt > 0 ? __fdiv_rn(sum, (float)cnt) : 0.0f;
+  }
+  __syncthreads();
+  const float* hd = s.hd;
+  for (int i = tid; i < g * nd; i += nt) {
+    const int k = i / nd, j = i - k * nd;
+    const float* sp = s.spec + k * ncol;
+    float dr, di;
+    equalize(sp[j], sp[nd + j], hd[j], hd[nd + j], hd[2 * nd + j], hd[2 * nd + j] > 0.0f, dr, di);
+    const float p = s.phi[k];
+    const float cr = __fadd_rn(dr, __fmul_rn(di, p));
+    const float ci = __fsub_rn(di, __fmul_rn(dr, p));
+    const int idx = demap_index(cr, ci, bps, d.qam_scale);
+    signed char* out = bits + ((size_t)(k0 + k) * nd + j) * bps;
+    for (int b = 0; b < bps; ++b) out[b] = (signed char)((idx >> (bps - 1 - b)) & 1);
+  }
+  __syncthreads();
+}
+
+// Channel estimate at frame offset 2*sym + cp, then n_sym data symbols at
+// 3*sym + cp + k*sym, from sample source ``src`` (reads 0 out of range).
+template <class Src>
+__device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
+                            signed char* bits, float* ch_re_out, float* ch_im_out,
+                            float* smem) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int fft = d.fft, na = d.n_active;
+  const int sym = fft + d.cp;
+  const DemodSmem s = carve(d, smem);
+
+  // CE: H = DFT(body) * known sign (phy.estimate_channel)
+  for (int n = tid; n < fft; n += nt) s.body[n] = src(base + 2 * sym + d.cp + n);
+  __syncthreads();
+  for (int c = tid; c < 2 * na; c += nt) {
+    float acc = 0.0f;
+    for (int n = 0; n < fft; ++n) acc = fmaf(s.body[n], d.rx_active[n * 2 * na + c], acc);
+    s.ch[c] = __fmul_rn(acc, d.ce_known[c < na ? c : c - na]);
+  }
+  __syncthreads();
+  for (int a = tid; a < na; a += nt) {
+    if (ch_re_out) ch_re_out[a] = s.ch[a];
+    if (ch_im_out) ch_im_out[a] = s.ch[na + a];
+  }
+  eq_tables(d, s);
+  for (int k0 = 0; k0 < n_sym; k0 += kGroup)
+    demod_group(src, base + 3 * sym, d, k0, min(kGroup, n_sym - k0), bits, s);
 }
 
 // ---- kernel A: full receive ----
@@ -448,6 +492,49 @@ chunk_kernel(const float* __restrict__ frames, int T, Demod d, int n_sym, signed
               smem);
 }
 
+// ---- streaming demod: a data region with a known channel ----
+//
+// Replaces audio_modem_tpu/kernels/receive.py::_chunk_stream_flat_kernel and
+// ::_chunk_stream_pair_kernel (entries decode_chunks_fused_stream and
+// decode_long_fused). Row b of ``data`` (row stride ld, L samples) starts at
+// the CP of its first data symbol; each sample is multiplied by scale[b].
+// The channel comes in the active-bin layout (ch_re, ch_im [B, n_active]).
+// One CTA demodulates kGroup symbols of one stream: it builds that stream's
+// EQ table, then runs demod_group. The TPU kernels' flat/pair split, 128-lane
+// sections and 16-bit word packing are Mosaic layout and have no part here.
+// What bounds it on the H100: the DFT reads the [fft, 2*nd + 2*npi] tables
+// once per kGroup symbols (from L2; 290 KB for the acoustic profile, 905 KB
+// for the standard one), so L2 bandwidth and FMA issue, not device memory
+// (each sample is read once). The grid is over symbols as well as streams,
+// so a single stream (the decoder's B = 1) still spreads over every SM.
+
+struct StreamSrc {
+  const float* x;
+  int L;
+  float scale;
+  __device__ float operator()(int i) const {
+    return (i >= 0 && i < L) ? __fmul_rn(x[i], scale) : 0.0f;
+  }
+};
+
+__global__ void __launch_bounds__(kThreadsS)
+stream_demod_kernel(const float* __restrict__ data, long long ld, int L,
+                    const float* __restrict__ ch_re, const float* __restrict__ ch_im,
+                    const float* __restrict__ scale, Demod d, int n_sym, signed char* bits_out) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y, k0 = blockIdx.x * kGroup, na = d.n_active;
+  const DemodSmem s = carve(d, smem);
+  for (int a = threadIdx.x; a < na; a += blockDim.x) {
+    s.ch[a] = ch_re[(size_t)b * na + a];
+    s.ch[na + a] = ch_im[(size_t)b * na + a];
+  }
+  __syncthreads();
+  eq_tables(d, s);
+  const StreamSrc src{data + (size_t)b * ld, L, scale[b]};
+  demod_group(src, 0, d, k0, min(kGroup, n_sym - k0),
+              bits_out + (size_t)b * n_sym * d.nd * d.bps, s);
+}
+
 Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_data,
                  const float* rx_pilot, const int* data_pos, const int* pilot_pos, int fft,
                  int cp, int n_active, int nd, int npi, float qam_scale, int bps) {
@@ -494,6 +581,24 @@ int amtpu_decode_chunks_fused(const float* frames, int B, int T, const float* rx
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   chunk_kernel<<<B, kThreadsB, smem, stream>>>(frames, T, d, n_sym, bits);
+  return (int)cudaGetLastError();
+}
+
+int amtpu_stream_demod(const float* data, int B, long long ld, int L, const float* ch_re,
+                       const float* ch_im, const float* scale, const float* rx_active,
+                       const float* ce_known, const float* rx_data, const float* rx_pilot,
+                       const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active,
+                       int nd, int npi, float qam_scale, int bps, int n_sym, signed char* bits,
+                       cudaStream_t stream) {
+  const Demod d = make_demod(rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos, fft, cp,
+                             n_active, nd, npi, qam_scale, bps);
+  const size_t smem = sizeof(float) * demod_smem_floats(d);
+  cudaError_t err = cudaFuncSetAttribute(stream_demod_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_sym + kGroup - 1) / kGroup, B);
+  stream_demod_kernel<<<grid, kThreadsS, smem, stream>>>(data, ld, L, ch_re, ch_im, scale, d, n_sym,
+                                                         bits);
   return (int)cudaGetLastError();
 }
 

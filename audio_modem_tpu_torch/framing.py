@@ -1,5 +1,5 @@
-"""L3 framing: payload codecs (host) and batched frame synthesis (device)
-(counterpart of audio_modem_tpu/framing.py).
+"""L3 framing: payload codecs (host) and frame synthesis (device), batched
+and single-frame (counterpart of audio_modem_tpu/framing.py).
 
 Wire formats (big-endian), matching the reference exactly:
   legacy (modem.js:498-522):  [nameLen:1][name][dataLen:4][data][CRC32:4]
@@ -315,3 +315,43 @@ def build_data_chunk_frames(
     if fec:
         payloads = [wrap_fec(pl) for pl in payloads]
     return synthesize_frames(payloads, mode, p.silence_pre_chunk(False), p.silence_post_chunk(), device)
+
+
+def synthesize_frame(
+    payload: bytes, mode: ModemMode, silence_pre: int, silence_post: int, device="cpu"
+) -> torch.Tensor:
+    """One payload -> its frame [total_len]: silence | pre1 | pre2 | CE |
+    data | silence, peak-normalized to 0.8 (modem.js:529-553); a batch of
+    one through ``_synth_frames_core``."""
+    return synthesize_frames([payload], mode, silence_pre, silence_post, device)[0]
+
+
+def build_transmit_signal(
+    file_data: bytes, mode: ModemMode, file_name: str, fec: bool = False, device="cpu"
+) -> torch.Tensor:
+    """Legacy single-frame TX (modem.js:498-555); ``fec`` wraps the payload in
+    RS(255,223) (extension)."""
+    p = mode.profile
+    payload = build_legacy_payload(file_data, file_name)
+    if fec:
+        payload = wrap_fec(payload)
+    return synthesize_frame(payload, mode, p.silence_pre_legacy(), p.silence_post_legacy(), device)
+
+
+def build_metadata_frame(
+    total_chunks: int, total_file_size: int, chunk_size: int, file_name: str, mode: ModemMode,
+    fec: bool = False, device="cpu",
+) -> torch.Tensor:
+    """modem.js:758-761."""
+    p = mode.profile
+    payload = build_metadata_payload(total_chunks, total_file_size, chunk_size, file_name)
+    if fec:
+        payload = wrap_fec(payload)
+    return synthesize_frame(payload, mode, p.silence_pre_chunk(True), p.silence_post_chunk(), device)
+
+
+def build_data_chunk_frame(
+    chunk: bytes, seq_num: int, mode: ModemMode, fec: bool = False, device="cpu"
+) -> torch.Tensor:
+    """modem.js:763-766."""
+    return build_data_chunk_frames([chunk], seq_num, mode, fec, device)[0]

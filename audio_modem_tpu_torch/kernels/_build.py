@@ -55,6 +55,15 @@ _SIGNATURES = {
         _P,                          # out: bits
         _P,                          # stream
     ],
+    "amtpu_stream_demod": [
+        _P, _I, ctypes.c_longlong, _I,  # data, B, row stride, L
+        _P, _P, _P,                  # ch_re, ch_im, scale
+        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _I, _I,                      # bps, n_sym
+        _P,                          # out: bits
+        _P,                          # stream
+    ],
 }
 
 _lock = threading.Lock()

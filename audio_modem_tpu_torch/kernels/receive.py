@@ -4,15 +4,20 @@ audio_modem_tpu/kernels/receive.py).
 ``decode_fused`` (kernel A, csrc/receive.cu ``receive_kernel``) runs the
 whole receive per stream: preprocess, strided Schmidl-Cox scan with
 first-peak commit, xcorr refine, CE, demod. ``decode_chunks_fused``
-(kernel B, ``chunk_kernel``) demodulates frame-aligned chunk frames. Each
-wrapper checks its inputs, allocates outputs and scratch with
-``torch.empty`` and launches on the current stream; on CPU tensors it runs
-the plain version beside it (``*_reference``), built from sync and phy.
+(kernel B, ``chunk_kernel``) demodulates frame-aligned chunk frames.
+``stream_demod`` (``stream_demod_kernel``) demodulates a data region whose
+channel and amplitude scale are already known, gridded over symbol groups
+as well as streams; ``decode_chunks_fused_stream`` and ``decode_long_fused``
+put a plain PyTorch prologue in front of it. Each wrapper checks its inputs,
+allocates outputs and scratch with ``torch.empty`` and launches on the
+current stream; on CPU tensors it runs the plain version beside it
+(``*_reference``), built from sync and phy.
 
-Output contract of ``decode_fused`` (as the JAX kernel's): start, coarse
-int32 [B]; coarse_metric, fine_metric float32 [B]; detected bool [B]; bits
-int8 [B, max_syms * bits_per_symbol]; ch_re, ch_im float32 [B, n_active].
-Bits of symbols past a frame's end are junk that every consumer truncates.
+Output contract of ``decode_fused`` and ``decode_long_fused`` (as the JAX
+kernels'): start, coarse int32 [B]; coarse_metric, fine_metric float32 [B];
+detected bool [B]; bits int8 [B, max_syms * bits_per_symbol]; ch_re, ch_im
+float32 [B, n_active]. Bits of symbols past a frame's end are junk that
+every consumer truncates.
 """
 
 from __future__ import annotations
@@ -26,30 +31,41 @@ from audio_modem_tpu_torch.ops.constellations import BPS, bits_per_symbol, qam_s
 from audio_modem_tpu_torch.tables import Tables, profile_tables
 
 
-def decode_fused_reference(
+def _front_end(
     signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
-) -> dict:
-    """Plain version of ``decode_fused``: the batched receive pipeline of
-    parallel/batch.py::_batch_decode_signals_xla in the JAX package."""
+) -> tuple[dict, torch.Tensor]:
+    """preprocess, strided scan, xcorr refine, CE at the refined start:
+    (the output dict without bits, data region [B, max_syms * sym] from the
+    first data symbol's CP)."""
     p = mode.profile
     sym = p.symbol_len
-    b = signals.shape[0]
     nv = n_valid.to(torch.int32)
     pre = sync.preprocess(signals, nv)
     coarse, cmetric = sync.detect_preamble(pre, p, nv, min_pos=min_pos.to(torch.int32), stride=sync.COARSE_STRIDE)
     start, fine = sync.refine_xcorr(pre, torch.clamp(coarse, min=0), p, nv)
     ch_re, ch_im = phy.estimate_channel(sync.gather_windows(pre, start + 2 * sym, sym), p)
-    data = sync.gather_windows(pre, start + 3 * sym, max_syms * sym).reshape(b, max_syms, sym)
-    return {
+    out = {
         "start": start,
         "coarse": coarse,
         "coarse_metric": cmetric,
         "fine_metric": fine,
         "detected": (coarse >= 0) & (fine >= sync.XCORR_THRESHOLD),
-        "bits": phy.demodulate(data, ch_re, ch_im, mode),
         "ch_re": ch_re,
         "ch_im": ch_im,
     }
+    return out, sync.gather_windows(pre, start + 3 * sym, max_syms * sym)
+
+
+def decode_fused_reference(
+    signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Plain version of ``decode_fused`` and ``decode_long_fused``: the
+    batched receive pipeline of parallel/batch.py::_batch_decode_signals_xla
+    in the JAX package."""
+    out, data = _front_end(signals, n_valid, min_pos, mode, max_syms)
+    sym = mode.profile.symbol_len
+    out["bits"] = phy.demodulate(data.reshape(-1, max_syms, sym), out["ch_re"], out["ch_im"], mode)
+    return out
 
 
 def decode_chunks_fused_reference(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
@@ -174,3 +190,89 @@ def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> to
     check(lib, code, "decode_chunks_fused")
     count_launch("decode_chunks_fused")
     return bits
+
+
+def stream_demod_reference(
+    data: torch.Tensor, ch_re: torch.Tensor, ch_im: torch.Tensor, scale: torch.Tensor, mode: ModemMode, n_sym: int
+) -> torch.Tensor:
+    """Plain version of ``stream_demod``: scale, cut n_sym symbols (zeros
+    past the row's end), ``phy.demodulate``."""
+    sym = mode.profile.symbol_len
+    need = n_sym * sym
+    x = data.to(torch.float32)[:, :need]
+    if x.shape[1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[1]))
+    x = x * scale.to(torch.float32)[:, None]
+    return phy.demodulate(x.reshape(-1, n_sym, sym), ch_re, ch_im, mode)
+
+
+def stream_demod(
+    data: torch.Tensor, ch_re: torch.Tensor, ch_im: torch.Tensor, scale: torch.Tensor, mode: ModemMode, n_sym: int
+) -> torch.Tensor:
+    """Demod of a data region with a known channel: [B, L] rows that start at
+    the first data symbol's CP (any row stride, unit sample stride), channel
+    (re, im) [B, n_active], per-row amplitude scale [B] -> hard bits int8
+    [B, n_sym * bits_per_symbol]. Samples past L read as 0. Counterpart of
+    the JAX package's _stream_demod_words, _stream_demod_words_pair and
+    _words_to_bits, without their sectioned and word layouts."""
+    if not runs_on_kernel(data, ch_re, ch_im, scale):
+        return stream_demod_reference(data, ch_re, ch_im, scale, mode, n_sym)
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    p = mode.profile
+    if data.dim() != 2 or data.dtype != torch.float32 or data.stride(1) != 1:
+        raise ValueError(f"data: need float32 [B, L] with unit sample stride, got {data.dtype} "
+                         f"{tuple(data.shape)} strides {data.stride()}")
+    b, length = data.shape
+    _check(ch_re, "ch_re", torch.float32, (b, p.num_active_subs))
+    _check(ch_im, "ch_im", torch.float32, (b, p.num_active_subs))
+    _check(scale, "scale", torch.float32, (b,))
+    if n_sym < 1 or b < 1:
+        raise ValueError(f"need at least one stream and one symbol, got B={b}, n_sym={n_sym}")
+    dev = data.device
+    tabs = profile_tables(mode, dev)
+    bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
+    lib = load_library()
+    code = lib.amtpu_stream_demod(
+        data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
+        *_table_args(tabs, mode), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(lib, code, "stream_demod")
+    count_launch("stream_demod")
+    return bits
+
+
+def decode_chunks_fused_stream(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
+    """Frame-aligned decode through the streaming demod: [B, T] frames
+    starting at their preamble -> hard bits int8 [B, n_sym * bits_per_symbol].
+    Plain prologue: per-frame peak scale 1/max|x| (app.js:918-925), CE of
+    the scaled CE body; then ``stream_demod``. Same contract as
+    ``decode_chunks_fused``; its plain version is
+    ``decode_chunks_fused_reference``, which divides by the peak where this
+    multiplies by its reciprocal (the JAX streaming path's formulation)."""
+    p = mode.profile
+    sym = p.symbol_len
+    frames = frames.to(torch.float32)
+    if frames.shape[1] < 3 * sym:
+        frames = torch.nn.functional.pad(frames, (0, 3 * sym - frames.shape[1]))
+    mx = frames.abs().amax(dim=-1)
+    big = mx > 1e-6
+    scale = torch.where(big, torch.reciprocal(torch.where(big, mx, 1.0)), 1.0)
+    ch_re, ch_im = phy.estimate_channel(frames[:, 2 * sym : 3 * sym] * scale[:, None], p)
+    return stream_demod(frames[:, 3 * sym :], ch_re, ch_im, scale, mode, n_sym)
+
+
+def decode_long_fused(
+    signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Full receive with the demod gridded over symbols: the plain front
+    end (preprocess, strided scan, xcorr refine, re-align, CE; the JAX
+    package runs it in XLA too), then ``stream_demod`` at scale 1. Same
+    output dict as ``decode_fused``; its plain version is
+    ``decode_fused_reference``. Where kernel A demodulates a stream's
+    symbols one group after another inside one CTA, this spreads them over
+    the whole card, which is what a single long signal needs."""
+    out, data = _front_end(signals, n_valid, min_pos, mode, max_syms)
+    ones = torch.ones(data.shape[0], dtype=torch.float32, device=data.device)
+    out["bits"] = stream_demod(data, out["ch_re"], out["ch_im"], ones, mode, max_syms)
+    return out

@@ -1,5 +1,5 @@
-"""MSB-first bit/byte packing and repetition voting on tensors
-(modem.js:460-495; counterpart of audio_modem_tpu/ops/bits.py)."""
+"""MSB-first bit/byte packing, repetition voting and soft combining on
+tensors (modem.js:460-495; counterpart of audio_modem_tpu/ops/bits.py)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,14 @@ def majority_vote(bits: torch.Tensor, n: int) -> torch.Tensor:
     m = nb // n
     groups = bits[..., : m * n].reshape(*lead, m, n).to(torch.int32)
     return (groups.sum(dim=-1) * 2 >= n).to(torch.int8)
+
+
+def soft_combine(soft: torch.Tensor, n: int) -> torch.Tensor:
+    """Soft repetition decode over the last axis: sum each transmitted bit's
+    n BPSK soft metrics in float64 and decide by sign (metric < 0 -> 1), the
+    maximum-ratio counterpart of ``majority_vote``. A trailing partial group
+    is dropped."""
+    *lead, nb = soft.shape
+    m = nb // n
+    groups = soft[..., : m * n].reshape(*lead, m, n).to(torch.float64)
+    return (groups.sum(dim=-1) < 0).to(torch.int8)

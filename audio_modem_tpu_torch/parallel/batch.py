@@ -1,10 +1,14 @@
 """Batched multi-stream decode (counterpart of
 audio_modem_tpu/parallel/batch.py; BASELINE config 5).
 
-The full receive goes through kernel A (``kernels.receive.decode_fused``)
-at every window length: Hopper has no VMEM gate, so there is no long-frame
-route. The frame-aligned demod goes through kernel B. The cadence-predicted
-decode (refine + CE + demod) is plain PyTorch.
+The batched full receive goes through kernel A
+(``kernels.receive.decode_fused``) at every window length: Hopper has no
+VMEM gate, and a batch of streams fills the card one CTA per stream. A
+single signal (B = 1) is another matter: the decoder sends it through
+``decode_long_fused``, whose streaming demod spreads the symbols over the
+card (see ``decoder._core_dispatch``). The frame-aligned demod goes through
+kernel B. The cadence-predicted decode (refine + CE + demod) is plain
+PyTorch.
 """
 
 from __future__ import annotations

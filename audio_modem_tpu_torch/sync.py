@@ -27,6 +27,7 @@ AUTOCORR_THRESHOLD = 0.5
 AUTOCORR_MIN_ENERGY = 0.01
 XCORR_THRESHOLD = 0.1
 XCORR_MIN_DENOM = 0.001
+XCORR_DETECT_THRESHOLD = 0.15
 COARSE_STRIDE = 16
 
 # Lanes of the fixed-order row sum (see pairwise_row_sum); the CUDA kernel
@@ -177,6 +178,31 @@ def sliding_correlate(x: torch.Tensor, profile: OfdmProfile) -> torch.Tensor:
     regions, not whole signals."""
     pre1 = profile_tables(profile, x.device).pre1
     return torch.matmul(x.to(torch.float32).unfold(-1, pre1.shape[0], 1), pre1)
+
+
+def detect_preamble_xcorr(
+    signal: torch.Tensor, profile: OfdmProfile, n_valid: "torch.Tensor | int"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense normalized cross-correlation against preamble 1 at every
+    position of [..., T] (modem.js:235-283, the reference's fallback
+    detector). Returns (best index int32, best metric float32); the index
+    is -1 when the metric is <= 0.15. The correlation is a float32
+    ``conv1d`` (cuDNN's TF32 is off), so no window view of the whole
+    signal is ever built."""
+    tabs = profile_tables(profile, signal.device)
+    plen = profile.symbol_len
+    *lead, t = signal.shape
+    s = signal.to(torch.float32)
+    corr = torch.nn.functional.conv1d(s.reshape(-1, 1, t), tabs.pre1.view(1, 1, plen))
+    corr = corr.reshape(*lead, t - plen + 1)
+    denom = torch.sqrt(windowed_sum(s * s, plen) * tabs.t_energy)
+    d = torch.arange(t - plen + 1, device=signal.device)
+    nv = torch.as_tensor(n_valid, device=signal.device)[..., None]
+    ok = (denom > XCORR_MIN_DENOM) & (d <= nv - plen)
+    metric = torch.where(ok, corr / torch.where(ok, denom, 1.0), 0.0)
+    best = metric.amax(dim=-1)
+    idx = torch.argmax(metric, dim=-1).to(torch.int32)
+    return torch.where(best > XCORR_DETECT_THRESHOLD, idx, -1).to(torch.int32), best
 
 
 def refine_xcorr(

@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at full size: 64 QPSK streams, 2048-byte
-chunks, 32 frames per turbo round (BASELINE config 5). Phases, one line each:
+Drives the port's two paths at full size: the turbo receive round (64 QPSK
+streams, 2048-byte chunks, 32 frames per round; BASELINE config 5) and the
+single-signal decode (api.encode -> api.decode of a 32,736-byte file as one
+BPSK-REPEAT legacy frame of 7,906,500 samples under 12 dB AWGN; BASELINE
+config 2). Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
   2. build the CUDA kernels from audio_modem_tpu_torch/csrc
@@ -17,6 +20,15 @@ chunks, 32 frames per turbo round (BASELINE config 5). Phases, one line each:
      (_batch_window_decode_multi) and the frame-aligned packed demod of its
      frames; every slot must be detected, CRC-valid and in sequence
   7. times from CUDA events (median of 10 after warm-up)
+  8. the streaming demod (decode_chunks_fused_stream) against its plain
+     version and kernel B on 64 BPSK-NARROW 512-byte chunk frames (598
+     symbols of 768 samples) and 64 QPSK 2048-byte chunk frames (41 of 576)
+  9. the single-signal decode with launch counts from zero: config 2 and a
+     clean 32,736-byte QPSK legacy frame through api.decode on the card,
+     exact bytes; decode_long_fused against its plain version on config 2
+ 10. times: stream_demod vs plain on config 2's 12,361-symbol data region,
+     decode_long_fused vs kernel A at B = 1, the streaming demod vs kernel B
+     on the 64 narrowband frames, one api.decode of config 2 (host clock)
 
 then the kernels as one JSON line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. There is no
@@ -70,9 +82,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
 
-    from audio_modem_tpu_torch import MODES, assert_full_fp32, framing
+    from audio_modem_tpu_torch import MODES, api, assert_full_fp32, decoder, framing
     from audio_modem_tpu_torch.kernels import _build, launch_counts, receive, reset_launch_counts
-    from audio_modem_tpu_torch.ops.bits import bits_to_bytes
+    from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
 
@@ -167,8 +179,8 @@ def main() -> None:
         parsed = framing.parse_payload_bytes(row.tobytes())
         if not (isinstance(parsed, framing.DataFrame) and parsed.crc_valid and parsed.seq_num == 0):
             fail("frame-aligned demod: a frame failed its CRC")
-    if min(counts.values()) < 1:
-        fail(f"a kernel of the main path never launched: {counts}")
+    if min(counts["decode_fused"], counts["decode_chunks_fused"]) < 1:
+        fail(f"a kernel of the turbo path never launched: {counts}")
     print(f"phase 6 main path: {N_STREAMS} x {K} slots detected, CRC-valid, in sequence; "
           f"{N_STREAMS} aligned frames CRC-valid; launches {counts}", flush=True)
 
@@ -189,6 +201,116 @@ def main() -> None:
           f"(runs {pa1:.3f}, {pa2:.3f}); kernel B {ms_b:.3f} ms ({kb1:.3f}, {kb2:.3f}) vs plain B "
           f"{plain_ms_b:.3f} ms ({pb1:.3f}, {pb2:.3f})", flush=True)
 
+    # 8. streaming demod against its plain version and kernel B
+    stream_frames = {}
+    err_s = 0  # largest |kernel bit - plain bit| of the streaming demod
+    for name, size in (("BPSK-NARROW", 512), ("QPSK", 2048)):
+        m = MODES[name]
+        pm = m.profile
+        ns = framing.num_symbols_for_payload(size + 11, m)
+        fr = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(N_STREAMS)], 0, m, device=dev)
+        pre = pm.silence_pre_chunk(False)
+        fr = fr[:, pre : pre + (3 + ns) * pm.symbol_len].contiguous()
+        ks = receive.decode_chunks_fused_stream(fr, m, ns)
+        ps = receive.decode_chunks_fused_reference(fr, m, ns)
+        kb8 = receive.decode_chunks_fused(fr, m, ns)
+        torch.cuda.synchronize()
+        flips_plain = int((ks != ps).sum().item())
+        err_s = max(err_s, int((ks.to(torch.int32) - ps).abs().max().item()))
+        flips_b = int((ks != kb8).sum().item())
+        for row in batch.batch_decode_chunk_frames_packed(fr, m, ns).cpu().numpy():
+            parsed = framing.parse_payload_bytes(row.tobytes())
+            if not (isinstance(parsed, framing.DataFrame) and parsed.crc_valid):
+                fail(f"{name}: a chunk frame failed its CRC")
+        by = bits_to_bytes(ks if m.repetition == 1 else majority_vote(ks, m.repetition)).cpu().numpy()
+        for row in by:
+            parsed = framing.parse_payload_bytes(row.tobytes())
+            if not (isinstance(parsed, framing.DataFrame) and parsed.crc_valid):
+                fail(f"{name}: the streaming demod's bits fail the CRC")
+        print(f"phase 8 stream demod {name}: frames {tuple(fr.shape)} n_sym {ns}; flipped bits vs plain "
+              f"{flips_plain}, vs kernel B {flips_b} of {ks.numel()}; all {N_STREAMS} CRC-valid", flush=True)
+        if flips_plain or flips_b:
+            fail(f"{name}: streaming demod differs from its plain version or kernel B")
+        stream_frames[name] = (fr, m, ns)
+
+    # 9. single-signal decode (BASELINE config 2), launch counts from zero
+    mode2 = MODES["BPSK-REPEAT"]
+    data2 = np.random.default_rng(SEED + 2).bytes(32 * 1024 - 32)
+    sigs2 = api.encode(data2, mode2, "big.bin", device=dev)
+    if len(sigs2) != 1 or sigs2[0].shape[0] != 7_906_500:
+        fail(f"config 2 TX: {len(sigs2)} frames of {[int(x.shape[0]) for x in sigs2]} samples")
+    sig2 = sigs2[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    noise_power = (sig2 * sig2).mean() / (10.0 ** (12.0 / 10.0))
+    noisy2 = sig2 + torch.randn(sig2.shape, generator=gen, device=dev) * torch.sqrt(noise_power)
+    data3 = np.random.default_rng(SEED + 3).bytes(32 * 1024 - 32)
+    sig3 = api.encode(data3, "QPSK", "q.bin", device=dev)[0]
+    if sig3.shape[0] != 392_418:
+        fail(f"QPSK legacy TX: {sig3.shape[0]} samples")
+    stream_launches = 0
+    for label, sig, m, want in (("config 2", noisy2, mode2, data2), ("QPSK legacy", sig3, MODES["QPSK"], data3)):
+        reset_launch_counts()
+        res, info = api.decode(sig, m, device=dev)
+        torch.cuda.synchronize()
+        counts9 = launch_counts()
+        if not (isinstance(res, framing.LegacyFrame) and res.crc_valid and res.data == want):
+            fail(f"{label}: api.decode gave {getattr(res, 'error', type(res).__name__)}")
+        if counts9["stream_demod"] < 1:
+            fail(f"{label}: the decode never launched stream_demod: {counts9}")
+        stream_launches += counts9["stream_demod"]
+        print(f"phase 9 api.decode {label}: {sig.shape[0]} samples -> {len(res.data)} exact bytes, CRC valid, "
+              f"preamble {info.preamble_idx}; launches {counts9}", flush=True)
+    n2 = noisy2.shape[0]
+    padded2 = decoder._padded(noisy2)
+    ms2 = decoder._max_symbols(padded2.shape[0], mode2)
+    nv2 = torch.tensor([n2], dtype=torch.int32, device=dev)
+    mp2 = torch.zeros(1, dtype=torch.int32, device=dev)
+    kl = receive.decode_long_fused(padded2[None], nv2, mp2, mode2, ms2)
+    pl = receive.decode_fused_reference(padded2[None], nv2, mp2, mode2, ms2)
+    torch.cuda.synchronize()
+    for key in ("start", "coarse", "detected"):
+        if not torch.equal(kl[key], pl[key]):
+            fail(f"decode_long_fused {key} differs from plain: {kl[key].tolist()} vs {pl[key].tolist()}")
+    err_fine_l = (kl["fine_metric"] - pl["fine_metric"]).abs().max().item()
+    err_ch_l = max((kl[k] - pl[k]).abs().max().item() for k in ("ch_re", "ch_im"))
+    n_pay = (n2 - (int(kl["start"][0]) + 3 * mode2.profile.symbol_len)) // mode2.profile.symbol_len
+    nb2 = n_pay * bits_per_symbol(mode2)
+    flips_l = int((kl["bits"][0, :nb2] != pl["bits"][0, :nb2]).sum().item())
+    err_s = max(err_s, int((kl["bits"][0, :nb2].to(torch.int32) - pl["bits"][0, :nb2]).abs().max().item()))
+    print(f"phase 9 decode_long_fused vs plain on config 2 (max_syms {ms2}): start/coarse/detected equal, "
+          f"fine err {err_fine_l:.3e} (tol 1e-5), ch err {err_ch_l:.3e} (tol 1e-4), flipped payload bits "
+          f"{flips_l} of {nb2}", flush=True)
+    if err_fine_l > 1e-5 or err_ch_l > 1e-4 or flips_l:
+        fail("decode_long_fused outside tolerance")
+
+    # 10. times (kernel and plain in turns)
+    head, region = receive._front_end(padded2[None], nv2, mp2, mode2, ms2)
+    ones = torch.ones(1, dtype=torch.float32, device=dev)
+    run_s = lambda: receive.stream_demod(region, head["ch_re"], head["ch_im"], ones, mode2, ms2)  # noqa: E731
+    plain_s = lambda: receive.stream_demod_reference(region, head["ch_re"], head["ch_im"], ones, mode2, ms2)  # noqa: E731
+    ps1, ks1, ks2, ps2 = time_ms(plain_s), time_ms(run_s), time_ms(run_s), time_ms(plain_s)
+    ms_s, plain_ms_s = statistics.median([ks1, ks2]), statistics.median([ps1, ps2])
+    run_l = lambda: receive.decode_long_fused(padded2[None], nv2, mp2, mode2, ms2)  # noqa: E731
+    run_a1 = lambda: receive.decode_fused(padded2[None], nv2, mp2, mode2, ms2)  # noqa: E731
+    ta1, tl1, tl2, ta2 = (time_ms(f, reps=5, warm=1) for f in (run_a1, run_l, run_l, run_a1))
+    fr_n, m_n, ns_n = stream_frames["BPSK-NARROW"]
+    run_cs = lambda: receive.decode_chunks_fused_stream(fr_n, m_n, ns_n)  # noqa: E731
+    run_cb = lambda: receive.decode_chunks_fused(fr_n, m_n, ns_n)  # noqa: E731
+    tb1, tcs1, tcs2, tb2 = time_ms(run_cb), time_ms(run_cs), time_ms(run_cs), time_ms(run_cb)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        api.decode(noisy2, mode2, device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 10 times {card}: stream_demod on config 2 ({ms2} symbols) {ms_s:.3f} ms ({ks1:.3f}, "
+          f"{ks2:.3f}) vs plain {plain_ms_s:.3f} ms ({ps1:.3f}, {ps2:.3f}); B = 1 decode_long_fused "
+          f"{statistics.median([tl1, tl2]):.3f} ms ({tl1:.3f}, {tl2:.3f}) vs kernel A "
+          f"{statistics.median([ta1, ta2]):.3f} ms ({ta1:.3f}, {ta2:.3f}); 64 narrowband frames "
+          f"decode_chunks_fused_stream {statistics.median([tcs1, tcs2]):.3f} ms ({tcs1:.3f}, {tcs2:.3f}) vs "
+          f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); api.decode of config 2 "
+          f"wall {statistics.median(walls):.1f} ms (runs {', '.join(f'{w:.1f}' for w in walls)})", flush=True)
+
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
@@ -197,6 +319,9 @@ def main() -> None:
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:604", "launches": counts["decode_chunks_fused"],
          "max_abs_err": float(err_b), "ms": ms_b, "plain_ms": plain_ms_b},
+        {"name": "stream_demod", "route": "cuda", "source": source,
+         "replaces": "audio_modem_tpu/kernels/receive.py:666, :728", "launches": stream_launches,
+         "max_abs_err": float(err_s), "ms": ms_s, "plain_ms": plain_ms_s},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Kernels A and B on the card against their plain versions, at small
-shapes. Marked ``cuda``: on a machine without a CUDA device each test skips
+"""Kernels A and B and the streaming demod on the card against their plain
+versions, at small shapes. Marked ``cuda``: on a machine without a CUDA device each test skips
 with the reason (the CUDA kernels have no CPU or interpret mode).
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -7,11 +7,13 @@ with the reason (the CUDA kernels have no CPU or interpret mode).
 on a machine with an NVIDIA Hopper GPU and nvcc builds the kernels and runs
 them."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, framing
+from audio_modem_tpu_torch import MODES, api, decoder, framing, phy
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
 from audio_modem_tpu_torch.parallel import batch
 
@@ -75,6 +77,30 @@ def test_kernel_b_matches_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", FIVE_MODES)
+@pytest.mark.parametrize("b, n_sym", [(1, 13), (65, 9)])
+def test_stream_demod_matches_plain(cuda_device, name, b, n_sym):
+    """Symbol counts that are not a multiple of the kernel's group, one
+    stream and 65 streams, per-stream scales other than 1, rows read through
+    a strided view of the frames."""
+    mode = MODES[name]
+    p = mode.profile
+    sym = p.symbol_len
+    rng = np.random.default_rng(21)
+    base = framing.build_data_chunk_frames([rng.bytes(400) for _ in range(min(b, 4))], 0, mode).numpy()
+    frames = base[np.arange(b) % len(base), p.silence_pre_chunk(False) :]
+    frames = frames + 0.02 * rng.standard_normal(frames.shape).astype(np.float32)
+    t = torch.from_numpy(frames).to(cuda_device)
+    ch_re, ch_im = phy.estimate_channel(t[:, 2 * sym : 3 * sym], p)
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, b).astype(np.float32)).to(cuda_device)
+    data = t[:, 3 * sym :]
+    reset_launch_counts()
+    out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
+    assert launch_counts()["stream_demod"] == 1
+    assert torch.equal(out, receive.stream_demod_reference(data, ch_re, ch_im, scale, mode, n_sym))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     mode = MODES["QPSK"]
     sig = torch.zeros(2, 8192, device=cuda_device)
@@ -83,3 +109,68 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
         receive.decode_fused(sig, nv, torch.zeros(2, dtype=torch.int32, device=cuda_device), mode, 2)
     with pytest.raises(ValueError):
         receive.decode_chunks_fused(sig[:, ::2], mode, 2)
+    ch = torch.zeros(2, mode.profile.num_active_subs, device=cuda_device)
+    with pytest.raises(ValueError):
+        receive.stream_demod(sig[:, ::2], ch, ch, torch.ones(2, device=cuda_device), mode, 2)
+
+
+def _awgn(x: np.ndarray, snr_db: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    power = float(np.mean(x.astype(np.float64) ** 2))
+    return (x + rng.standard_normal(x.shape) * np.sqrt(power / 10 ** (snr_db / 10))).astype(np.float32)
+
+
+def _decode_case(case: str):
+    """(signal, mode, keywords, payload) for one rung of the decoder's ladder."""
+    if case == "clean":
+        mode = MODES["QPSK"]
+        payload = np.random.default_rng(12).bytes(2000)
+        return framing.build_transmit_signal(payload, mode, "c.bin").numpy(), mode, {}, payload
+    if case == "tracked":
+        from audio_modem_tpu import channel
+
+        mode = MODES["BPSK-ACOUSTIC"]
+        payload = np.random.default_rng(11).bytes(5200)
+        sig = framing.build_transmit_signal(payload, mode, "d.bin").numpy()
+        spec = channel.ChannelSpec(clock_ppm=200.0, snr_db=25.0)
+        return channel.apply_channel_np(sig, spec, seed=3), mode, {"track_timing": True}, payload
+    if case == "fec":
+        mode = MODES["BPSK-ACOUSTIC"]
+        sym = mode.profile.symbol_len
+        payload = np.random.default_rng(41).bytes(150)
+        sig = _awgn(framing.build_transmit_signal(payload, mode, "e.bin", fec=True).numpy(), 30.0, 4)
+        s0 = mode.profile.silence_pre_legacy() + 8 * sym
+        sig[s0 : s0 + 3 * sym] = 0.0
+        return sig, mode, {}, payload
+    mode = MODES["BPSK-REPEAT"]
+    p = mode.profile
+    payload = np.random.default_rng(42).bytes(96)
+    sig = framing.build_transmit_signal(payload, mode, "f.bin").numpy()
+    if case == "soft":  # data region at -2 dB: the hard vote fails
+        d0 = p.silence_pre_legacy() + 3 * p.symbol_len
+        sig[d0:] = _awgn(sig[d0:], -2.0, 4)
+        return sig, mode, {}, payload
+    return _awgn(sig, 3.0, 2), mode, {}, payload  # "xcorr": Schmidl-Cox misses at 3 dB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["clean", "soft", "xcorr", "fec", "tracked"])
+def test_api_decode_on_card_matches_cpu(cuda_device, case):
+    """Every rung of the decoder's retry ladder on the card gives what the
+    plain path gives on the CPU, through the streaming-demod kernel."""
+    sig, mode, kw, payload = _decode_case(case)
+    ref, rinfo = api.decode(sig, mode, **kw)
+    reset_launch_counts()
+    out, info = api.decode(torch.from_numpy(sig.copy()).to(cuda_device), mode, device=cuda_device, **kw)
+    assert launch_counts()["stream_demod"] >= 1
+    assert type(out).__name__ == type(ref).__name__
+    assert dataclasses.asdict(out) == dataclasses.asdict(ref)
+    assert out.crc_valid and out.data == payload
+    assert (info.preamble_idx, info.coarse_idx) == (rinfo.preamble_idx, rinfo.coarse_idx)
+    assert abs(info.fine_metric - rinfo.fine_metric) < 1e-5
+
+
+@pytest.mark.cuda
+def test_decoder_raises_for_a_tensor_on_another_device(cuda_device):
+    with pytest.raises(ValueError):
+        decoder.decode_signal(torch.zeros(40000, device=cuda_device), MODES["QPSK"], device="cpu")

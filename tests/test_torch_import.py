@@ -30,6 +30,8 @@ MODULES = [
     "audio_modem_tpu_torch.kernels.receive",
     "audio_modem_tpu_torch.parallel.batch",
     "audio_modem_tpu_torch.parallel.multi_receiver",
+    "audio_modem_tpu_torch.decoder",
+    "audio_modem_tpu_torch.api",
 ]
 
 
@@ -69,7 +71,10 @@ def test_cpu_tensors_take_the_plain_path():
     assert not out["detected"].any()
     bits = receive.decode_chunks_fused(sig, mode, 2)
     assert bits.shape == (2, 2 * 410) and bits.dtype == torch.int8
-    assert kernels.launch_counts() == {"decode_fused": 0, "decode_chunks_fused": 0}
+    assert torch.equal(receive.decode_chunks_fused_stream(sig, mode, 2), bits)
+    out = receive.decode_long_fused(sig, nv, torch.zeros(2, dtype=torch.int32), mode, 2)
+    assert not out["detected"].any()
+    assert kernels.launch_counts() == {"decode_fused": 0, "decode_chunks_fused": 0, "stream_demod": 0}
 
 
 def test_mixed_devices_raise():
