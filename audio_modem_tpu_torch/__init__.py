@@ -5,8 +5,9 @@ A port of ``audio_modem_tpu`` (JAX/Pallas), which stays beside it as the
 reference. Module names follow the JAX package so each counterpart is easy
 to find:
 
+  configs    OFDM profiles and modem modes
   tables     per-profile constant tables (DFT matrices, templates, signs)
-  ops/       bits, constellations, active-bin DFT
+  ops/       bits, constellations, active-bin DFT, JS-LCG, CRC-32, Reed-Solomon
   sync       preprocess, Schmidl-Cox scan with first-peak commit, xcorr refine
              and detector
   phy        CP strip, modulate, channel estimate, equalize, demodulate, soft
@@ -17,8 +18,14 @@ to find:
   kernels/   hand-written CUDA kernels, each beside its plain PyTorch version
   parallel/  batched multi-stream decode and the turbo receive round
 
-The wire format keeps one definition: profiles, modes, the JS-LCG, CRC-32
-and Reed-Solomon come from the JAX package's jax-free modules.
+The port imports nothing of the JAX package. It keeps its own copies of the
+wire format's host modules (``configs``, ``ops.lcg``, ``ops.crc32``,
+``ops.rs``); tests/test_torch_configs.py holds them equal to the originals,
+so the wire format keeps one definition in effect.
+
+Entry points (``api``, ``decoder``, the ``framing`` builders) run on the
+card unless the caller passes ``device="cpu"``; without a CUDA device a call
+that does not name the CPU raises.
 
 Everything runs in float32. TF32 is off for matrix products and
 convolutions: the plain reference must not round to ~3 decimal digits.
@@ -26,7 +33,7 @@ convolutions: the plain reference must not round to ~3 decimal digits.
 
 import torch
 
-from audio_modem_tpu.configs import MODES, ModemMode, OfdmProfile
+from audio_modem_tpu_torch.configs import MODES, ModemMode, OfdmProfile
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -8,7 +8,10 @@ mirroring the reference app layer:
   decode()         decodeReceivedSignal (modem.js:557-654)
 
 Same signatures as the JAX package plus a keyword ``device``: signals are
-synthesized on it and decoded on it (see ``decoder``).
+synthesized on it and decoded on it (see ``decoder``). It defaults to
+``"cuda"``; without a CUDA device a call that does not pass
+``device="cpu"`` raises. ``mode`` is a mode of this package's ``configs``
+or a mode name.
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import CHUNK_THRESHOLD, ModemMode, get_mode
 from audio_modem_tpu_torch import decoder, framing
+from audio_modem_tpu_torch.configs import CHUNK_THRESHOLD, ModemMode, get_mode
 from audio_modem_tpu_torch.framing import ParseResult
 
 
@@ -28,7 +31,7 @@ def _resolve(mode: str | ModemMode) -> ModemMode:
 
 
 def encode_legacy(
-    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cpu"
+    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cuda"
 ) -> torch.Tensor:
     """Single-frame TX signal (modem.js:498-555). ``fec=True`` wraps the
     payload in RS(255,223) (extension)."""
@@ -41,7 +44,7 @@ def encode_chunked(
     file_name: str = "file",
     fec: bool = False,
     batch: int = 16,
-    device="cpu",
+    device="cuda",
 ) -> Iterator[torch.Tensor]:
     """Chunked TX: yields the metadata frame, then one frame per chunk
     (playChunkedFrames, app.js:201-303). Data frames are synthesized in
@@ -65,7 +68,7 @@ def encode_chunked(
 
 
 def encode(
-    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cpu"
+    data: bytes, mode: str | ModemMode = "QPSK", file_name: str = "file", fec: bool = False, device="cuda"
 ) -> list[torch.Tensor]:
     """Size-routed encode (startSend, app.js:124-135): the list of frame
     signals (one for the legacy path)."""
@@ -78,7 +81,7 @@ def decode(
     signal: "np.ndarray | torch.Tensor",
     mode: str | ModemMode = "QPSK",
     track_timing: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> tuple[ParseResult, decoder.DecodeInfo | None]:
     """Full-signal decode of one frame (modem.js:557-654) on ``device``.
     ``track_timing`` turns on the clock-drift timing tracker (extension)."""

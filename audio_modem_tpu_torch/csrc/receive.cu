@@ -1,8 +1,9 @@
 // Receive kernels for Hopper (sm_90a): the full per-stream receive (kernel A),
 // the frame-aligned chunk demod (kernel B) and the streaming demod of a data
 // region whose channel is already known, with a plain C interface for ctypes
-// (see kernels/_build.py). A and B run one CTA per stream or frame; the
-// streaming demod one CTA per (group of kGroup symbols, stream).
+// (see kernels/_build.py). A is a pipeline of six launches gridded over
+// (tiles or symbol groups, streams); B runs one CTA per frame; the streaming
+// demod one CTA per (group of kGroup symbols, stream).
 //
 // All three end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as the
@@ -20,7 +21,7 @@
 
 namespace {
 
-constexpr int kThreadsA = 1024;  // kernel A: one CTA per stream
+constexpr int kThreadsA = 1024;  // kernel A's per-lane and per-stream stages
 constexpr int kThreadsB = 512;   // kernel B: one CTA per frame
 constexpr int kThreadsS = 256;   // stream demod: one CTA per (symbol group, stream)
 constexpr int kSumLanes = 1024;  // sync.SUM_LANES
@@ -235,55 +236,89 @@ __device__ void demod_group(const Src& src, int data_base, const Demod& d, int k
   __syncthreads();
 }
 
+// CE: H = DFT(body) * known sign (phy.estimate_channel) of the fft samples
+// of ``src`` from ``pos``, staged in ``body`` (fft floats of shared memory).
+// H goes to ``ch`` ([2*n_active] re | im, shared) or, where ``ch`` is null,
+// to ``ch_re_out`` and ``ch_im_out`` ([n_active] each, global).
+template <class Src>
+__device__ void channel_estimate(const Src& src, int pos, const Demod& d, float* body, float* ch,
+                                 float* ch_re_out, float* ch_im_out) {
+  const int tid = threadIdx.x, nt = blockDim.x, na = d.n_active;
+  for (int n = tid; n < d.fft; n += nt) body[n] = src(pos + n);
+  __syncthreads();
+  for (int c = tid; c < 2 * na; c += nt) {
+    float acc = 0.0f;
+    for (int n = 0; n < d.fft; ++n) acc = fmaf(body[n], d.rx_active[n * 2 * na + c], acc);
+    const float h = __fmul_rn(acc, d.ce_known[c < na ? c : c - na]);
+    if (ch)
+      ch[c] = h;
+    else if (c < na)
+      ch_re_out[c] = h;
+    else
+      ch_im_out[c - na] = h;
+  }
+  __syncthreads();
+}
+
 // Channel estimate at frame offset 2*sym + cp, then n_sym data symbols at
 // 3*sym + cp + k*sym, from sample source ``src`` (reads 0 out of range).
 template <class Src>
 __device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
-                            signed char* bits, float* ch_re_out, float* ch_im_out,
-                            float* smem) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int fft = d.fft, na = d.n_active;
-  const int sym = fft + d.cp;
+                            signed char* bits, float* smem) {
+  const int sym = d.fft + d.cp;
   const DemodSmem s = carve(d, smem);
-
-  // CE: H = DFT(body) * known sign (phy.estimate_channel)
-  for (int n = tid; n < fft; n += nt) s.body[n] = src(base + 2 * sym + d.cp + n);
-  __syncthreads();
-  for (int c = tid; c < 2 * na; c += nt) {
-    float acc = 0.0f;
-    for (int n = 0; n < fft; ++n) acc = fmaf(s.body[n], d.rx_active[n * 2 * na + c], acc);
-    s.ch[c] = __fmul_rn(acc, d.ce_known[c < na ? c : c - na]);
-  }
-  __syncthreads();
-  for (int a = tid; a < na; a += nt) {
-    if (ch_re_out) ch_re_out[a] = s.ch[a];
-    if (ch_im_out) ch_im_out[a] = s.ch[na + a];
-  }
+  channel_estimate(src, base + 2 * sym + d.cp, d, s.body, s.ch, nullptr, nullptr);
   eq_tables(d, s);
   for (int k0 = 0; k0 < n_sym; k0 += kGroup)
     demod_group(src, base + 3 * sym, d, k0, min(kGroup, n_sym - k0), bits, s);
 }
 
-// ---- kernel A: full receive ----
+// ---- kernel A: full receive, a pipeline of six launches ----
 //
 // Replaces audio_modem_tpu/kernels/receive.py::_receive_kernel (entry
-// decode_fused). Per stream (one CTA of 1024 threads):
-//   1. preprocess: mean over n_valid (fixed pairwise order), max |x - mean|;
-//      the normalized sample is recomputed from x wherever it is read, so the
-//      [B, T] window is never copied;
-//   2. 16-sample block sums of s[i]*s[i+256] and s[i]^2 (global scratch);
-//   3. strided Schmidl-Cox metric P^2/(Ra*Rb) from 16-block doubling sums;
-//   4. first-peak commit: prefix max over thread chunks, first drop below
-//      0.7x the running max, first maximal index of the prefix;
-//   5. +-3*CP normalized xcorr refine against preamble 1 (shared memory);
-//   6. CE and demod at the refined start (demod_frame).
+// decode_fused): preprocess, strided Schmidl-Cox scan with first-peak
+// commit, +-3*CP xcorr refine, CE, demod, for B streams of T samples.
+//
 // What bounds it on the H100: bytes from device memory. The window is read
-// about three times (mean, max, block sums) plus the refine region and the
-// frame; at B = 64, T = 914,688 that is ~0.7 GB. The metric scratch is
-// ~1/16 of the window and stays in L2. The design keeps every pass a
-// coalesced stream over the row and nothing else of window size in memory.
-// Load balance: 64 CTAs on 132 SMs leave half the card idle; splitting a
-// stream's scan over several CTAs is the first thing to change.
+// once in the least: 234 MB at the turbo round's B = 64, T = 914,688, or 70 us
+// at 3.35 TB/s. The normalization (x - mean) / max|x - mean| needs the
+// stream's global mean before the scan can start, so two reads of the
+// window (~140 us) are the practical floor; everything else (metric ~1/16 of
+// the window, the refine region, the frame's symbols) is small or stays in L2.
+//
+// The design makes both passes over the window coalesced streams gridded
+// over (tiles, streams), and the demod gridded over (symbol groups,
+// streams), so even one stream fills the card; each stage stays exact:
+//   1. pre_stats (tiles of kRowsA rows of kSumLanes, B, lane quarters): per
+//      lane a perfect pairwise subtree over the tile's rows, plus max(x) and
+//      min(x) of the tile's valid samples. Read 1 of the window.
+//   2. combine (B): finishes the tree in tree order over all tiles (padded
+//      rows are +0, as in sync.pairwise_row_sum), halves the lanes: the
+//      mean, bit for bit. amax = max(0, |fl(xmax - mean)|, |fl(xmin -
+//      mean)|) equals max|fl(x - mean)| because fl(x - mean) is monotone in x.
+//   3. scan (kScanTile positions, B): the tile's normalized samples and
+//      halo in shared memory (read 2), 16-sample block sums in sample order,
+//      window16 doubling sums, the metric, and the tile's max.
+//   4. commit (kScanTile positions, B): carry-in = max of the earlier
+//      tiles' maxima; a block prefix max gives the running max; the tile's
+//      first drop goes to an atomicMin. Max is exact in any order, so the
+//      first drop equals sync.first_peak_commit's.
+//   5. refine_ce (B): best and its first index up to the first drop (full
+//      tiles' maxima plus one partial tile), the xcorr refine, the CE.
+//   6. demod (kGroup-symbol groups, B): demod_group on the normalized
+//      samples at start + 3*sym, EQ tables built per CTA from the CE.
+// The normalized sample is recomputed from x wherever it is read, so the
+// [B, T] window is never copied.
+
+constexpr int kRowsA = 32;       // rows of kSumLanes per pre_stats tile (power of two)
+constexpr int kLaneSplit = 4;    // pre_stats CTAs per tile, each a quarter of the lanes
+constexpr int kThreadsPre = kSumLanes / kLaneSplit;
+constexpr int kCombineGroup = 8; // tiles loaded together by combine (power of two)
+constexpr int kScanTile = 512;   // scan positions per scan / commit CTA
+constexpr int kThreadsScan = 256;
+constexpr int kScanBlocksE = kScanTile + 2 * kHalfBlocks - 1;  // energy blocks per scan tile
+constexpr int kScanBlocksP = kScanTile + kHalfBlocks - 1;      // product blocks per scan tile
+constexpr int kScanSamples = kStride * kScanBlocksE;           // samples per scan tile, halo included
 
 struct PreSrc {
   const float* x;
@@ -294,6 +329,10 @@ struct PreSrc {
   }
 };
 
+__device__ PreSrc pre_src(const float* signals, const int* n_valid, const float* stats, int T, int b) {
+  return PreSrc{signals + (size_t)b * T, T, n_valid[b], stats[2 * b], stats[2 * b + 1]};
+}
+
 __device__ float window16(const float* b) {
   // S16 of sync.windowed_sum: ((b0+b1)+(b2+b3)) + ... balanced over adjacent pairs
   float s2[8], s4[4], s8[2];
@@ -303,114 +342,230 @@ __device__ float window16(const float* b) {
   return __fadd_rn(s8[0], s8[1]);
 }
 
-__global__ void __launch_bounds__(kThreadsA)
-receive_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid,
-               const int* __restrict__ min_pos, int T, const float* __restrict__ pre1,
-               float t_energy, Demod d, int max_syms, int nb_p, int nb_e, int n_pos,
-               float* block_p, float* block_e, float* metric_all, int* start_out,
-               int* coarse_out, float* cmetric_out, float* fine_out, unsigned char* detected_out,
-               signed char* bits_out, float* ch_re_out, float* ch_im_out) {
-  extern __shared__ float smem[];
-  __shared__ float lanes[kSumLanes];
-  __shared__ float region[kMaxRegion];
-  __shared__ float tmpl[kMaxSym];
-  __shared__ float redf[33];
-  __shared__ int redi[33];
-
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int nv = n_valid[b], mp = min_pos[b];
-  const int sym = d.fft + d.cp, half = d.fft / 2;
-  const float* x = signals + (size_t)b * T;
-  float* bp = block_p + (size_t)b * nb_p;
-  float* be = block_e + (size_t)b * nb_e;
-  float* metric = metric_all + (size_t)b * n_pos;
-
-  // 1. preprocess: pairwise sum over rows of SUM_LANES, then halve the lanes
-  int m = 1;
-  while (m * kSumLanes < T) m *= 2;
-  {
-    float stk[24];
-    int sp = 0;
-    for (int k = 0; k < m; ++k) {
-      const int i = k * kSumLanes + tid;
-      float v = (i < T && i < nv) ? x[i] : 0.0f;
-      for (int c = k; c & 1; c >>= 1) v = __fadd_rn(stk[--sp], v);
-      stk[sp++] = v;
-    }
-    lanes[tid] = stk[0];
+// Inclusive prefix max over the block (blockDim.x a multiple of 32).
+__device__ float block_prefix_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = fmaxf(v, u);
   }
+  if (lane == 31) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < nw ? red[lane] : -INFINITY;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = fmaxf(w, u);
+    }
+    red[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v = fmaxf(v, red[warp - 1]);
+  __syncthreads();
+  return v;
+}
+
+// 1. lane subtrees and extremes of rows [tile * rows, (tile + 1) * rows), one
+// quarter of the lanes per CTA (blockIdx.z), so four CTAs share an SM and
+// one's loads overlap another's reductions
+__global__ void __launch_bounds__(kThreadsPre)
+pre_stats_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T, int rows,
+                 float* __restrict__ part, float* __restrict__ tile_mm) {
+  __shared__ float redf[33];
+  const int tile = blockIdx.x, b = blockIdx.y, n_tiles = gridDim.x;
+  const int lane = blockIdx.z * kThreadsPre + threadIdx.x;
+  const int nv = min(n_valid[b], T);
+  const float* x = signals + (size_t)b * T;
+  float v[kRowsA];
+  float hi = -INFINITY, lo = INFINITY;
+#pragma unroll
+  for (int r = 0; r < kRowsA; ++r) {
+    const int i = (tile * rows + r) * kSumLanes + lane;
+    v[r] = (r < rows && i < nv) ? x[i] : 0.0f;
+    if (r < rows && i < nv) {
+      hi = fmaxf(hi, v[r]);
+      lo = fminf(lo, v[r]);
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < kRowsA; s <<= 1) {
+    if (s < rows) {
+#pragma unroll
+      for (int r = 0; r + s < kRowsA; r += 2 * s) v[r] = __fadd_rn(v[r], v[r + s]);
+    }
+  }
+  const size_t t = (size_t)b * n_tiles + tile;
+  part[t * kSumLanes + lane] = v[0];
+  hi = block_max(hi, redf);
+  lo = -block_max(-lo, redf);
+  if (threadIdx.x == 0) {
+    const size_t q = t * kLaneSplit + blockIdx.z;
+    tile_mm[2 * q] = hi;
+    tile_mm[2 * q + 1] = lo;
+  }
+}
+
+// 2. mean and scale per stream; resets the first-drop slot
+__global__ void __launch_bounds__(kThreadsA)
+combine_kernel(const float* __restrict__ part, const float* __restrict__ tile_mm,
+               const int* __restrict__ n_valid, int T, int n_tiles, float* __restrict__ stats,
+               int* __restrict__ first_drop) {
+  __shared__ float lanes[kSumLanes];
+  __shared__ float redf[33];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const float* pb = part + (size_t)b * n_tiles * kSumLanes;
+  // n_tiles is a power of two: aligned groups of g tiles are subtrees of the
+  // tree; each group's loads go out together, its root joins a stack
+  const int g = min(kCombineGroup, n_tiles);
+  float stk[24];
+  int sp = 0;
+  for (int k0 = 0; k0 < n_tiles; k0 += g) {
+    float v[kCombineGroup];
+#pragma unroll
+    for (int r = 0; r < kCombineGroup; ++r) v[r] = r < g ? pb[(size_t)(k0 + r) * kSumLanes + tid] : 0.0f;
+#pragma unroll
+    for (int s = 1; s < kCombineGroup; s <<= 1) {
+      if (s < g) {
+#pragma unroll
+        for (int r = 0; r + s < kCombineGroup; r += 2 * s) v[r] = __fadd_rn(v[r], v[r + s]);
+      }
+    }
+    float root = v[0];
+    for (int c = k0 / g; c & 1; c >>= 1) root = __fadd_rn(stk[--sp], root);
+    stk[sp++] = root;
+  }
+  lanes[tid] = stk[0];
   __syncthreads();
   for (int h = kSumLanes / 2; h > 0; h >>= 1) {
     if (tid < h) lanes[tid] = __fadd_rn(lanes[tid], lanes[tid + h]);
     __syncthreads();
   }
-  const float mean = __fdiv_rn(lanes[0], fmaxf((float)nv, 1.0f));
-  float amax = 0.0f;
-  for (int i = tid; i < min(nv, T); i += kThreadsA) amax = fmaxf(amax, fabsf(__fsub_rn(x[i], mean)));
-  amax = block_max(amax, redf);
-  const PreSrc pre{x, T, nv, mean, amax > 1e-6f ? __frcp_rn(amax) : 1.0f};
+  const float* mm = tile_mm + (size_t)b * n_tiles * kLaneSplit * 2;
+  float hi = -INFINITY, lo = INFINITY;
+  for (int k = tid; k < n_tiles * kLaneSplit; k += blockDim.x) {
+    hi = fmaxf(hi, mm[2 * k]);
+    lo = fminf(lo, mm[2 * k + 1]);
+  }
+  hi = block_max(hi, redf);
+  lo = -block_max(-lo, redf);
+  if (tid == 0) {
+    const int nv = n_valid[b];
+    const float mean = __fdiv_rn(lanes[0], fmaxf((float)nv, 1.0f));
+    float amax = 0.0f;
+    if (min(nv, T) > 0) amax = fmaxf(fabsf(__fsub_rn(hi, mean)), fabsf(__fsub_rn(lo, mean)));
+    stats[2 * b] = mean;
+    stats[2 * b + 1] = amax > 1e-6f ? __frcp_rn(amax) : 1.0f;
+    first_drop[b] = INT_MAX;
+  }
+}
 
-  // 2. block sums, samples added in order
-  for (int q = tid; q < nb_e; q += kThreadsA) {
-    const int i0 = q * kStride;
-    float e = 0.0f, p = 0.0f;
-    for (int j = 0; j < kStride; ++j) {
-      const float s = pre(i0 + j);
-      e = j ? __fadd_rn(e, __fmul_rn(s, s)) : __fmul_rn(s, s);
-      if (q < nb_p) {
-        const float pr = __fmul_rn(s, pre(i0 + j + half));
-        p = j ? __fadd_rn(p, pr) : pr;
-      }
-    }
+// 3. metric at d = 16k for the tile's kScanTile positions. Shared samples are
+// stored with one pad float every kStride, so the threads of a warp, each
+// summing its own 16-sample block, hit distinct banks.
+__device__ __forceinline__ int pad16(int i) { return i + (i >> 4); }
+
+__global__ void __launch_bounds__(kThreadsScan)
+scan_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid,
+            const int* __restrict__ min_pos, int T, const float* __restrict__ stats, int half,
+            int n_pos, float* __restrict__ metric_all, float* __restrict__ tile_max) {
+  __shared__ float s[kScanSamples + kScanSamples / kStride];
+  __shared__ float bp[kScanBlocksP];
+  __shared__ float be[kScanBlocksE];
+  __shared__ float redf[33];
+  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, nt = blockDim.x;
+  const int k0 = tile * kScanTile, kc = min(kScanTile, n_pos - k0);
+  const int nbe = kc + 2 * kHalfBlocks - 1, nbp = kc + kHalfBlocks - 1;
+  const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  const int i0 = k0 * kStride;
+  for (int i = tid; i < kStride * nbe; i += nt) s[pad16(i)] = pre(i0 + i);
+  __syncthreads();
+  // block sums, samples added in order (sync._strided_windowed_sum)
+  for (int q = tid; q < nbe; q += nt) {
+    const float* sq = s + pad16(q * kStride);
+    float e = __fmul_rn(sq[0], sq[0]);
+    for (int j = 1; j < kStride; ++j) e = __fadd_rn(e, __fmul_rn(sq[j], sq[j]));
     be[q] = e;
-    if (q < nb_p) bp[q] = p;
+    if (q < nbp) {
+      const float* sr = s + pad16(q * kStride + half);
+      float p = __fmul_rn(sq[0], sr[0]);
+      for (int j = 1; j < kStride; ++j) p = __fadd_rn(p, __fmul_rn(sq[j], sr[j]));
+      bp[q] = p;
+    }
   }
   __syncthreads();
+  float* metric = metric_all + (size_t)b * n_pos + k0;
+  float mx = 0.0f;
+  for (int k = tid; k < kc; k += nt) {
+    const float p = window16(bp + k);
+    const float ra = window16(be + k);
+    const float rb = window16(be + k + kHalfBlocks);
+    const int dpos = (k0 + k) * kStride;
+    const bool valid = dpos <= pre.nv - 2 * half && dpos >= min_pos[b] && ra > kMinEnergy &&
+                       rb > kMinEnergy;
+    const float m = valid ? __fdiv_rn(__fmul_rn(p, p), __fmul_rn(ra, rb)) : 0.0f;
+    metric[k] = m;
+    mx = fmaxf(mx, m);
+  }
+  mx = block_max(mx, redf);
+  if (tid == 0) tile_max[(size_t)b * gridDim.x + tile] = mx;
+}
 
-  // 3. metric at d = 16k
-  for (int k = tid; k < n_pos; k += kThreadsA) {
-    float w[kHalfBlocks];
-    for (int j = 0; j < kHalfBlocks; ++j) w[j] = bp[k + j];
-    const float p = window16(w);
-    for (int j = 0; j < kHalfBlocks; ++j) w[j] = be[k + j];
-    const float ra = window16(w);
-    for (int j = 0; j < kHalfBlocks; ++j) w[j] = be[k + kHalfBlocks + j];
-    const float rb = window16(w);
-    const int dpos = k * kStride;
-    const bool valid = dpos <= nv - 2 * half && dpos >= mp && ra > kMinEnergy && rb > kMinEnergy;
-    metric[k] = valid ? __fdiv_rn(__fmul_rn(p, p), __fmul_rn(ra, rb)) : 0.0f;
-  }
-  __syncthreads();
+// 4. first drop below 0.7x the running max, tile by tile
+__global__ void __launch_bounds__(kScanTile)
+commit_kernel(const float* __restrict__ metric_all, const float* __restrict__ tile_max, int n_pos,
+              int* __restrict__ first_drop) {
+  __shared__ float redf[33];
+  __shared__ int redi[33];
+  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, n_tiles = gridDim.x;
+  const float* tm = tile_max + (size_t)b * n_tiles;
+  float carry = 0.0f;  // the metric is >= +0, so 0 is the empty running max
+  for (int t = tid; t < tile; t += blockDim.x) carry = fmaxf(carry, tm[t]);
+  carry = block_max(carry, redf);
+  const int k = tile * kScanTile + tid;
+  const float m = k < n_pos ? metric_all[(size_t)b * n_pos + k] : 0.0f;
+  const float run = fmaxf(carry, block_prefix_max(m, redf));
+  const bool drop = k < n_pos && run > kAutocorrThreshold && m < __fmul_rn(0.7f, run);
+  const int first = block_min(drop ? k : INT_MAX, redi);
+  if (tid == 0 && first != INT_MAX) atomicMin(first_drop + b, first);
+}
 
-  // 4. first-peak commit
-  const int chunk = (n_pos + kThreadsA - 1) / kThreadsA;
-  const int k_lo = min(tid * chunk, n_pos), k_hi = min(k_lo + chunk, n_pos);
-  float cmax = 0.0f;
-  for (int k = k_lo; k < k_hi; ++k) cmax = fmaxf(cmax, metric[k]);
-  lanes[tid] = cmax;
-  __syncthreads();
-  for (int off = 1; off < kThreadsA; off <<= 1) {  // inclusive prefix max
-    const float v = tid >= off ? lanes[tid - off] : 0.0f;
-    __syncthreads();
-    lanes[tid] = fmaxf(lanes[tid], v);
-    __syncthreads();
-  }
-  float run = tid ? lanes[tid - 1] : 0.0f;
-  int first = INT_MAX;
-  for (int k = k_lo; k < k_hi; ++k) {
-    run = fmaxf(run, metric[k]);
-    if (run > kAutocorrThreshold && metric[k] < __fmul_rn(0.7f, run)) {
-      first = k;
+// 5. best up to the first drop, xcorr refine over [lo, hi], CE
+__global__ void __launch_bounds__(kThreadsA)
+refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
+                 const float* __restrict__ stats, const float* __restrict__ pre1, float t_energy,
+                 Demod d, int n_pos, int n_tiles, const float* __restrict__ metric_all,
+                 const float* __restrict__ tile_max, const int* __restrict__ first_drop,
+                 int* start_out, int* coarse_out, float* cmetric_out, float* fine_out,
+                 unsigned char* detected_out, float* ch_re_out, float* ch_im_out) {
+  __shared__ float region[kMaxRegion];
+  __shared__ float tmpl[kMaxSym];
+  __shared__ float body[kMaxSym];
+  __shared__ float redf[33];
+  __shared__ int redi[33];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  const int sym = d.fft + d.cp, na = d.n_active;
+  const float* metric = metric_all + (size_t)b * n_pos;
+  const float* tm = tile_max + (size_t)b * n_tiles;
+
+  int fd = first_drop[b];
+  if (fd == INT_MAX) fd = n_pos - 1;
+  const int tf = fd / kScanTile, p0 = tf * kScanTile;
+  float best = 0.0f;
+  for (int t = tid; t < tf; t += nt) best = fmaxf(best, tm[t]);
+  for (int k = p0 + tid; k <= fd; k += nt) best = fmaxf(best, metric[k]);
+  best = block_max(best, redf);
+  int t_first = INT_MAX;  // first full tile that holds best
+  for (int t = tid; t < tf; t += nt)
+    if (tm[t] == best) {
+      t_first = t;
       break;
     }
-  }
-  int fd = block_min(first, redi);
-  if (fd == INT_MAX) fd = n_pos - 1;
-  float best = 0.0f;
-  for (int k = tid; k <= fd; k += kThreadsA) best = fmaxf(best, metric[k]);
-  best = block_max(best, redf);
+  t_first = block_min(t_first, redi);
+  const int k_lo = t_first == INT_MAX ? p0 : t_first * kScanTile;
+  const int k_hi = t_first == INT_MAX ? fd : k_lo + kScanTile - 1;
   int kbest = INT_MAX;
-  for (int k = tid; k <= fd; k += kThreadsA)
+  for (int k = k_lo + tid; k <= k_hi; k += nt)
     if (metric[k] == best) {
       kbest = k;
       break;
@@ -418,17 +573,16 @@ receive_kernel(const float* __restrict__ signals, const int* __restrict__ n_vali
   kbest = block_min(kbest, redi);
   const int coarse = best > kAutocorrThreshold ? kbest * kStride : -1;
 
-  // 5. xcorr refine over [lo, hi]
   const int radius = 3 * d.cp, n_off = 2 * radius + 1;
   const int c = max(coarse, 0);
-  const int lo = max(c - radius, 0), hi = min(nv - sym, c + radius);
-  for (int i = tid; i < n_off + sym - 1; i += kThreadsA) region[i] = pre(lo + i);
-  for (int i = tid; i < sym; i += kThreadsA) tmpl[i] = pre1[i];
+  const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
+  for (int i = tid; i < n_off + sym - 1; i += nt) region[i] = pre(lo + i);
+  for (int i = tid; i < sym; i += nt) tmpl[i] = pre1[i];
   __syncthreads();
   float fm = -INFINITY;
   int dbest = INT_MAX;
   float mloc[2] = {-INFINITY, -INFINITY};
-  for (int o = tid, r = 0; o < n_off; o += kThreadsA, ++r) {
+  for (int o = tid, r = 0; o < n_off; o += nt, ++r) {
     float corr = 0.0f, e = 0.0f;
     for (int j = 0; j < sym; ++j) {
       const float v = region[o + j];
@@ -440,7 +594,7 @@ receive_kernel(const float* __restrict__ signals, const int* __restrict__ n_vali
     fm = fmaxf(fm, mloc[r]);
   }
   fm = block_max(fm, redf);
-  for (int o = tid, r = 0; o < n_off; o += kThreadsA, ++r)
+  for (int o = tid, r = 0; o < n_off; o += nt, ++r)
     if (mloc[r] == fm && isfinite(fm)) dbest = min(dbest, lo + o);
   dbest = block_min(dbest, redi);
   const int start = isfinite(fm) ? dbest : c;
@@ -451,10 +605,35 @@ receive_kernel(const float* __restrict__ signals, const int* __restrict__ n_vali
     fine_out[b] = fm;
     detected_out[b] = coarse >= 0 && fm >= kXcorrThreshold;
   }
+  channel_estimate(pre, start + 2 * sym + d.cp, d, body, nullptr, ch_re_out + (size_t)b * na,
+                   ch_im_out + (size_t)b * na);
+}
 
-  // 6. CE + demod at the refined start
-  demod_frame(pre, start, d, max_syms, bits_out + (size_t)b * max_syms * d.nd * d.bps,
-              ch_re_out + (size_t)b * d.n_active, ch_im_out + (size_t)b * d.n_active, smem);
+// EQ tables of stream b from its channel (re, im) [B, n_active] in global memory.
+__device__ void load_channel(const Demod& d, const DemodSmem& s, const float* ch_re,
+                             const float* ch_im, int b) {
+  const int na = d.n_active;
+  for (int a = threadIdx.x; a < na; a += blockDim.x) {
+    s.ch[a] = ch_re[(size_t)b * na + a];
+    s.ch[na + a] = ch_im[(size_t)b * na + a];
+  }
+  __syncthreads();
+  eq_tables(d, s);
+}
+
+// 6. kGroup data symbols of stream b at start + 3*sym
+__global__ void __launch_bounds__(kThreadsS)
+receive_demod_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
+                     const float* __restrict__ stats, const int* __restrict__ start,
+                     const float* __restrict__ ch_re, const float* __restrict__ ch_im, Demod d,
+                     int max_syms, signed char* bits_out) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y, k0 = blockIdx.x * kGroup;
+  const DemodSmem s = carve(d, smem);
+  load_channel(d, s, ch_re, ch_im, b);
+  const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  demod_group(pre, start[b] + 3 * (d.fft + d.cp), d, k0, min(kGroup, max_syms - k0),
+              bits_out + (size_t)b * max_syms * d.nd * d.bps, s);
 }
 
 // ---- kernel B: frame-aligned chunk demod ----
@@ -488,8 +667,7 @@ chunk_kernel(const float* __restrict__ frames, int T, Demod d, int n_sym, signed
   for (int i = threadIdx.x; i < T; i += blockDim.x) mx = fmaxf(mx, fabsf(x[i]));
   mx = block_max(mx, redf);
   const ScaledSrc src{x, T, mx, mx > 1e-6f};
-  demod_frame(src, 0, d, n_sym, bits_out + (size_t)b * n_sym * d.nd * d.bps, nullptr, nullptr,
-              smem);
+  demod_frame(src, 0, d, n_sym, bits_out + (size_t)b * n_sym * d.nd * d.bps, smem);
 }
 
 // ---- streaming demod: a data region with a known channel ----
@@ -522,17 +700,25 @@ stream_demod_kernel(const float* __restrict__ data, long long ld, int L,
                     const float* __restrict__ ch_re, const float* __restrict__ ch_im,
                     const float* __restrict__ scale, Demod d, int n_sym, signed char* bits_out) {
   extern __shared__ float smem[];
-  const int b = blockIdx.y, k0 = blockIdx.x * kGroup, na = d.n_active;
+  const int b = blockIdx.y, k0 = blockIdx.x * kGroup;
   const DemodSmem s = carve(d, smem);
-  for (int a = threadIdx.x; a < na; a += blockDim.x) {
-    s.ch[a] = ch_re[(size_t)b * na + a];
-    s.ch[na + a] = ch_im[(size_t)b * na + a];
-  }
-  __syncthreads();
-  eq_tables(d, s);
+  load_channel(d, s, ch_re, ch_im, b);
   const StreamSrc src{data + (size_t)b * ld, L, scale[b]};
   demod_group(src, 0, d, k0, min(kGroup, n_sym - k0),
               bits_out + (size_t)b * n_sym * d.nd * d.bps, s);
+}
+
+// Kernel A's tiling of a T-sample row with n_pos scan positions: rows *
+// n_rows_tiles is the power-of-two row count of sync.pairwise_row_sum.
+struct TilingA {
+  int rows, n_rows_tiles, n_scan_tiles;
+};
+
+TilingA tiling_a(int T, int n_pos) {
+  long long m = 1;
+  while (m * kSumLanes < T) m *= 2;
+  const int rows = (int)(m < kRowsA ? m : kRowsA);
+  return TilingA{rows, (int)(m / rows), (n_pos + kScanTile - 1) / kScanTile};
 }
 
 Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_data,
@@ -548,24 +734,62 @@ extern "C" {
 
 const char* amtpu_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// Floats of kernel A's scratch for B rows of T samples and n_pos scan
+// positions: lane subtrees [B, n_rows_tiles, kSumLanes], tile extremes
+// [B, n_rows_tiles, kLaneSplit, 2], mean and scale [B, 2], metric [B, n_pos],
+// scan tile maxima [B, n_scan_tiles], first drop (int) [B].
+long long amtpu_decode_fused_scratch_floats(int B, int T, int n_pos) {
+  const TilingA g = tiling_a(T, n_pos);
+  return (long long)B *
+         ((long long)g.n_rows_tiles * (kSumLanes + 2 * kLaneSplit) + 2 + n_pos + g.n_scan_tiles + 1);
+}
+
+// Kernel A's six launches on ``stream``. ``scratch`` holds
+// amtpu_decode_fused_scratch_floats(B, T, n_pos) floats; n_pos is the
+// position count of sync.scan_metric at stride kStride.
 int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_pos, int B, int T,
                        const float* pre1, float t_energy, const float* rx_active,
                        const float* ce_known, const float* rx_data, const float* rx_pilot,
                        const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active,
-                       int nd, int npi, float qam_scale, int bps, int max_syms, int nb_p, int nb_e,
-                       int n_pos, float* block_p, float* block_e, float* metric, int* start,
-                       int* coarse, float* cmetric, float* fine, unsigned char* detected,
-                       signed char* bits, float* ch_re, float* ch_im, cudaStream_t stream) {
+                       int nd, int npi, float qam_scale, int bps, int max_syms, int n_pos,
+                       float* scratch, int* start, int* coarse, float* cmetric, float* fine,
+                       unsigned char* detected, signed char* bits, float* ch_re, float* ch_im,
+                       cudaStream_t stream) {
+  if (T < 1 || n_pos < 1 || fft != 2 * kHalfBlocks * kStride || cp > 256 || fft + cp > kMaxSym ||
+      B < 1 || max_syms < 1)
+    return (int)cudaErrorInvalidValue;
+  const TilingA g = tiling_a(T, n_pos);
+  const int rows = g.rows, n_rows_tiles = g.n_rows_tiles, n_scan_tiles = g.n_scan_tiles;
+  float* part = scratch;
+  float* tile_mm = part + (size_t)B * n_rows_tiles * kSumLanes;
+  float* stats = tile_mm + (size_t)B * n_rows_tiles * kLaneSplit * 2;
+  float* metric = stats + (size_t)B * 2;
+  float* tile_max = metric + (size_t)B * n_pos;
+  int* first_drop = reinterpret_cast<int*>(tile_max + (size_t)B * n_scan_tiles);
   const Demod d = make_demod(rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos, fft, cp,
                              n_active, nd, npi, qam_scale, bps);
   const size_t smem = sizeof(float) * demod_smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(receive_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(receive_demod_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  receive_kernel<<<B, kThreadsA, smem, stream>>>(signals, n_valid, min_pos, T, pre1, t_energy, d,
-                                                 max_syms, nb_p, nb_e, n_pos, block_p, block_e,
-                                                 metric, start, coarse, cmetric, fine, detected,
-                                                 bits, ch_re, ch_im);
+  pre_stats_kernel<<<dim3(n_rows_tiles, B, kLaneSplit), kThreadsPre, 0, stream>>>(signals, n_valid, T,
+                                                                                  rows, part, tile_mm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  combine_kernel<<<B, kThreadsA, 0, stream>>>(part, tile_mm, n_valid, T, n_rows_tiles, stats,
+                                              first_drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  scan_kernel<<<dim3(n_scan_tiles, B), kThreadsScan, 0, stream>>>(signals, n_valid, min_pos, T, stats,
+                                                                  fft / 2, n_pos, metric, tile_max);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  commit_kernel<<<dim3(n_scan_tiles, B), kScanTile, 0, stream>>>(metric, tile_max, n_pos, first_drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  refine_ce_kernel<<<B, kThreadsA, 0, stream>>>(signals, n_valid, T, stats, pre1, t_energy, d, n_pos,
+                                                n_scan_tiles, metric, tile_max, first_drop, start,
+                                                coarse, cmetric, fine, detected, ch_re, ch_im);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 grid((max_syms + kGroup - 1) / kGroup, B);
+  receive_demod_kernel<<<grid, kThreadsS, smem, stream>>>(signals, n_valid, T, stats, start, ch_re,
+                                                          ch_im, d, max_syms, bits);
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,11 @@ covers the bucket's maximum symbol count, and the host keeps the reference's
 floor((n_valid - data_start) / symbol_len) symbols (modem.js:368), so both
 packages cut the same junk tail.
 
-Every function takes an explicit ``device``. A numpy signal is copied there;
-a tensor must already lie there. Nothing moves to the CPU on its own, and
-nothing falls back to it: on CUDA the demod runs the streaming-demod kernel
-or raises.
+Every entry point takes a ``device``, ``"cuda"`` unless the caller names the
+CPU. A numpy signal is copied there; a tensor must already lie there.
+Nothing moves to the CPU on its own, and nothing falls back to it: without a
+CUDA device a call that does not pass ``device="cpu"`` raises, and on CUDA
+the demod runs the streaming-demod kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,14 +22,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import FRAME_DATA, FRAME_FEC, FRAME_META, ModemMode
 from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.configs import FRAME_DATA, FRAME_FEC, FRAME_META, ModemMode
 from audio_modem_tpu_torch.framing import (
     FrameError,
     ParseResult,
     num_symbols_for_payload,
     parse_payload_bytes,
 )
+from audio_modem_tpu_torch.kernels import resolve_device
 from audio_modem_tpu_torch.kernels.receive import decode_long_fused, stream_demod
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
@@ -62,7 +64,7 @@ def _max_symbols(pad_len: int, mode: ModemMode) -> int:
 
 def _on_device(signal: "np.ndarray | torch.Tensor", device) -> torch.Tensor:
     """1-D float32 signal on ``device``; a tensor elsewhere raises."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if isinstance(signal, torch.Tensor):
         if signal.device.type != dev.type or (dev.index is not None and signal.device.index != dev.index):
             raise ValueError(f"signal lies on {signal.device}, decode asked for {dev}")
@@ -82,12 +84,12 @@ def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: Modem
     """One padded signal -> (coarse, start, fine_metric, bits, ch_re, ch_im),
     through ``decode_long_fused`` at every length.
 
-    The decoder always has B = 1, so on CUDA the work must spread over
-    symbols, not streams: kernel A (``decode_fused``) would demodulate all
-    of a long frame's symbols inside one CTA, while ``decode_long_fused``'s
-    streaming demod grids them over the card. On the CPU the same call runs
-    the plain pipeline (the streaming demod's plain version), which is the
-    JAX package's XLA formulation (its ``_decode_core``)."""
+    The decoder always has B = 1, so on CUDA the demod must spread over
+    symbols, not streams: ``decode_long_fused``'s streaming demod grids
+    them over the card, with the front end in plain PyTorch as the JAX
+    package runs it in XLA. On the CPU the same call runs the plain
+    pipeline (the streaming demod's plain version), which is the JAX
+    package's XLA formulation (its ``_decode_core``)."""
     dev = signal.device
     nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
     mp = torch.tensor([min_pos], dtype=torch.int32, device=dev)
@@ -199,7 +201,7 @@ def _fec_region_bytes(by: bytes) -> int:
 
 
 def decode_raw(
-    signal: "np.ndarray | torch.Tensor", mode: ModemMode, track_timing: bool = False, device="cpu"
+    signal: "np.ndarray | torch.Tensor", mode: ModemMode, track_timing: bool = False, device="cuda"
 ) -> tuple[bytes | FrameError, DecodeInfo | None]:
     """Full-signal sync + demod -> raw payload bytes (repetition undone,
     packed), before any frame-type parse. A committed coarse peak whose
@@ -253,7 +255,7 @@ def decode_raw(
 
 
 def decode_signal(
-    signal: "np.ndarray | torch.Tensor", mode: ModemMode, track_timing: bool = False, device="cpu"
+    signal: "np.ndarray | torch.Tensor", mode: ModemMode, track_timing: bool = False, device="cuda"
 ) -> tuple[ParseResult, DecodeInfo | None]:
     """Decode a full recorded signal (modem.js:557-654).
 
@@ -315,7 +317,7 @@ def _decode_signal_once(
 
 
 def pad_aligned_frame(
-    frame: "np.ndarray | torch.Tensor", mode: ModemMode, device="cpu"
+    frame: "np.ndarray | torch.Tensor", mode: ModemMode, device="cuda"
 ) -> "tuple[torch.Tensor, int, int] | FrameError":
     """Zero-pad a sync-aligned frame to a whole number of SYM_BUCKET-symbol
     buckets: (frame [3*sym + n_bucket*sym], n_sym, n_bucket). Extra symbols
@@ -333,7 +335,7 @@ def pad_aligned_frame(
     return torch.nn.functional.pad(fr[:keep], (0, usable - keep)), n_sym, n_bucket
 
 
-def decode_chunk_frame(frame: "np.ndarray | torch.Tensor", mode: ModemMode, device="cpu") -> ParseResult:
+def decode_chunk_frame(frame: "np.ndarray | torch.Tensor", mode: ModemMode, device="cuda") -> ParseResult:
     """Decode a frame whose sample 0 is the preamble-1 start
     (modem.js:770-803), with the retry ladder: soft combining, FEC erasures,
     timing tracking."""

@@ -8,8 +8,9 @@ Wire formats (big-endian), matching the reference exactly:
   data   (modem.js:694-714):  [0xFF][seqNum:4][dataLen:2][data][CRC32:4]
   FEC    (extension):         [0xFD][codedLen:4][RS(255,223)-coded inner payload]
 
-The codecs are copies of the JAX package's host code, which cannot be
-imported without jax; the tests hold both byte-identical.
+The codecs are copies of the JAX package's host code; the tests hold both
+byte-identical. The frame builders synthesize on ``device``, the card unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import FRAME_DATA, FRAME_FEC, FRAME_META, ModemMode
-from audio_modem_tpu.ops.crc32 import crc32
+from audio_modem_tpu_torch.configs import FRAME_DATA, FRAME_FEC, FRAME_META, ModemMode
+from audio_modem_tpu_torch.ops.crc32 import crc32
 from audio_modem_tpu_torch import phy
+from audio_modem_tpu_torch.kernels import resolve_device
 from audio_modem_tpu_torch.ops.bits import bytes_to_bits
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.tables import profile_tables
@@ -171,7 +173,7 @@ def parse_payload_bytes(
 
 
 def fec_coded_len(payload_bytes: int) -> int:
-    from audio_modem_tpu.ops.rs import K, NSYM
+    from audio_modem_tpu_torch.ops.rs import K, NSYM
 
     return payload_bytes + NSYM * (-(-payload_bytes // K))
 
@@ -182,7 +184,7 @@ def fec_wire_len(payload_bytes: int) -> int:
 
 
 def wrap_fec(payload: bytes) -> bytes:
-    from audio_modem_tpu.ops.rs import codeword_lengths, interleave, rs_encode
+    from audio_modem_tpu_torch.ops.rs import codeword_lengths, interleave, rs_encode
 
     coded = rs_encode(payload)
     coded = interleave(coded, len(codeword_lengths(len(coded))))
@@ -192,7 +194,7 @@ def wrap_fec(payload: bytes) -> bytes:
 def parse_fec(
     by: bytes, min_len: int = 10, erasures: "np.ndarray | None" = None
 ) -> ParseResult:
-    from audio_modem_tpu.ops.rs import codeword_lengths, deinterleave, rs_decode
+    from audio_modem_tpu_torch.ops.rs import codeword_lengths, deinterleave, rs_decode
 
     if len(by) < 5:
         return FrameError("FEC frame too short")
@@ -292,7 +294,7 @@ def _synth_frames_core(
 
 
 def synthesize_frames(
-    payloads: "list[bytes]", mode: ModemMode, silence_pre: int, silence_post: int, device="cpu"
+    payloads: "list[bytes]", mode: ModemMode, silence_pre: int, silence_post: int, device="cuda"
 ) -> torch.Tensor:
     """Equal-length payloads -> [B, total_len] frames in one batched call."""
     n_bytes = len(payloads[0])
@@ -301,12 +303,12 @@ def synthesize_frames(
     u8 = np.frombuffer(b"".join(payloads), np.uint8).reshape(len(payloads), n_bytes)
     n_sym = num_symbols_for_payload(n_bytes, mode)
     return _synth_frames_core(
-        torch.from_numpy(u8.copy()).to(device), mode, n_sym, silence_pre, silence_post
+        torch.from_numpy(u8.copy()).to(resolve_device(device)), mode, n_sym, silence_pre, silence_post
     )
 
 
 def build_data_chunk_frames(
-    chunks: "list[bytes]", first_seq: int, mode: ModemMode, fec: bool = False, device="cpu"
+    chunks: "list[bytes]", first_seq: int, mode: ModemMode, fec: bool = False, device="cuda"
 ) -> torch.Tensor:
     """Consecutive equal-length chunks numbered from ``first_seq`` ->
     [B, total_len] data frames (modem.js:763-766, batched)."""
@@ -318,7 +320,7 @@ def build_data_chunk_frames(
 
 
 def synthesize_frame(
-    payload: bytes, mode: ModemMode, silence_pre: int, silence_post: int, device="cpu"
+    payload: bytes, mode: ModemMode, silence_pre: int, silence_post: int, device="cuda"
 ) -> torch.Tensor:
     """One payload -> its frame [total_len]: silence | pre1 | pre2 | CE |
     data | silence, peak-normalized to 0.8 (modem.js:529-553); a batch of
@@ -327,7 +329,7 @@ def synthesize_frame(
 
 
 def build_transmit_signal(
-    file_data: bytes, mode: ModemMode, file_name: str, fec: bool = False, device="cpu"
+    file_data: bytes, mode: ModemMode, file_name: str, fec: bool = False, device="cuda"
 ) -> torch.Tensor:
     """Legacy single-frame TX (modem.js:498-555); ``fec`` wraps the payload in
     RS(255,223) (extension)."""
@@ -340,7 +342,7 @@ def build_transmit_signal(
 
 def build_metadata_frame(
     total_chunks: int, total_file_size: int, chunk_size: int, file_name: str, mode: ModemMode,
-    fec: bool = False, device="cpu",
+    fec: bool = False, device="cuda",
 ) -> torch.Tensor:
     """modem.js:758-761."""
     p = mode.profile
@@ -351,7 +353,7 @@ def build_metadata_frame(
 
 
 def build_data_chunk_frame(
-    chunk: bytes, seq_num: int, mode: ModemMode, fec: bool = False, device="cpu"
+    chunk: bytes, seq_num: int, mode: ModemMode, fec: bool = False, device="cuda"
 ) -> torch.Tensor:
     """modem.js:763-766."""
     return build_data_chunk_frames([chunk], seq_num, mode, fec, device)[0]

@@ -31,6 +31,16 @@ def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. Entry points default to ``"cuda"``;
+    asking for CUDA where there is no CUDA device raises, it never runs on
+    the CPU instead."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
 def runs_on_kernel(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; raises on a mix or any
     other device."""

@@ -40,9 +40,8 @@ _SIGNATURES = {
         _P, _F,                      # pre1, t_energy
         _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
         _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
-        _I, _I,                      # bps, max_syms
-        _I, _I, _I,                  # nb_p, nb_e, n_pos
-        _P, _P, _P,                  # scratch: block_p, block_e, metric
+        _I, _I, _I,                  # bps, max_syms, n_pos
+        _P,                          # scratch
         _P, _P, _P, _P, _P,          # out: start, coarse, cmetric, fine, detected
         _P, _P, _P,                  # out: bits, ch_re, ch_im
         _P,                          # stream
@@ -65,6 +64,9 @@ _SIGNATURES = {
         _P,                          # stream
     ],
 }
+
+# C functions that return a size rather than a CUDA error code.
+_SIZES = {"amtpu_decode_fused_scratch_floats": [_I, _I, _I]}  # B, T, n_pos
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -121,6 +123,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.amtpu_error_string.argtypes = [ctypes.c_int]
         lib.amtpu_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,9 +1,10 @@
 """Receive kernels and their plain versions (counterpart of
 audio_modem_tpu/kernels/receive.py).
 
-``decode_fused`` (kernel A, csrc/receive.cu ``receive_kernel``) runs the
-whole receive per stream: preprocess, strided Schmidl-Cox scan with
-first-peak commit, xcorr refine, CE, demod. ``decode_chunks_fused``
+``decode_fused`` (kernel A, csrc/receive.cu ``amtpu_decode_fused``) runs
+the whole receive: preprocess, strided Schmidl-Cox scan with first-peak
+commit, xcorr refine, CE, demod, as six launches gridded over (row tiles,
+scan tiles or symbol groups, streams). ``decode_chunks_fused``
 (kernel B, ``chunk_kernel``) demodulates frame-aligned chunk frames.
 ``stream_demod`` (``stream_demod_kernel``) demodulates a data region whose
 channel and amplitude scale are already known, gridded over symbol groups
@@ -24,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from audio_modem_tpu.configs import ModemMode
 from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
 from audio_modem_tpu_torch.ops.constellations import BPS, bits_per_symbol, qam_scale
 from audio_modem_tpu_torch.tables import Tables, profile_tables
@@ -105,24 +106,22 @@ def _table_args(tabs: Tables, mode: ModemMode) -> list:
     ]
 
 
-def _scan_geometry(t: int, mode: ModemMode) -> tuple[int, int, int]:
-    """(prod blocks, energy blocks, scan positions) of the strided scan over
-    a T-sample row, as sync.detect_preamble sizes them."""
+def _scan_positions(t: int, mode: ModemMode) -> int:
+    """Positions of ``sync.scan_metric`` at stride 16 on a T-sample row."""
     half = mode.profile.fft_size // 2
     stride = sync.COARSE_STRIDE
     if half // stride != 16:
         raise ValueError("the kernel's scan window is 16 blocks of 16 samples (fft 512)")
     hs = half // stride
-    nb_p = (t - half) // stride
-    nb_e = t // stride
-    return nb_p, nb_e, min(nb_p - hs + 1, nb_e - 2 * hs + 1)
+    return min((t - half) // stride - hs + 1, t // stride - 2 * hs + 1)
 
 
 def decode_fused(
     signals: torch.Tensor, n_valid: torch.Tensor, min_pos: torch.Tensor, mode: ModemMode, max_syms: int
 ) -> dict:
     """Batched full receive: [B, T] raw windows, [B] valid lengths and
-    minimum preamble positions -> the dict of the module docstring."""
+    minimum preamble positions -> the dict of the module docstring. One
+    call is one launch of kernel A's pipeline."""
     if not runs_on_kernel(signals, n_valid, min_pos):
         return decode_fused_reference(signals, n_valid, min_pos, mode, max_syms)
     from audio_modem_tpu_torch.kernels._build import check, load_library
@@ -134,16 +133,15 @@ def decode_fused(
     _check(min_pos, "min_pos", torch.int32, (b,))
     if p.symbol_len > 768 or p.cp_len > 256:
         raise ValueError("kernel A's shared refine buffers hold cp <= 256, sym <= 768")
-    nb_p, nb_e, n_pos = _scan_geometry(t, mode)
+    n_pos = _scan_positions(t, mode)
     if n_pos < 1:
         raise ValueError(f"window of {t} samples is too short to scan")
     dev = signals.device
     tabs = profile_tables(mode, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    block_p = torch.empty(b, nb_p, **f32)
-    block_e = torch.empty(b, nb_e, **f32)
-    metric = torch.empty(b, n_pos, **f32)
+    lib = load_library()
+    scratch = torch.empty(lib.amtpu_decode_fused_scratch_floats(b, t, n_pos), **f32)
     out = {
         "start": torch.empty(b, **i32),
         "coarse": torch.empty(b, **i32),
@@ -154,13 +152,11 @@ def decode_fused(
         "ch_re": torch.empty(b, p.num_active_subs, **f32),
         "ch_im": torch.empty(b, p.num_active_subs, **f32),
     }
-    lib = load_library()
     code = lib.amtpu_decode_fused(
         signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
         tabs.pre1.data_ptr(), tabs.t_energy,
         *_table_args(tabs, mode),
-        max_syms, nb_p, nb_e, n_pos,
-        block_p.data_ptr(), block_e.data_ptr(), metric.data_ptr(),
+        max_syms, n_pos, scratch.data_ptr(),
         *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
         *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -269,9 +265,8 @@ def decode_long_fused(
     end (preprocess, strided scan, xcorr refine, re-align, CE; the JAX
     package runs it in XLA too), then ``stream_demod`` at scale 1. Same
     output dict as ``decode_fused``; its plain version is
-    ``decode_fused_reference``. Where kernel A demodulates a stream's
-    symbols one group after another inside one CTA, this spreads them over
-    the whole card, which is what a single long signal needs."""
+    ``decode_fused_reference``. The decoder's route at every length, as
+    the JAX package's ``decode_long_fused`` is."""
     out, data = _front_end(signals, n_valid, min_pos, mode, max_syms)
     ones = torch.ones(data.shape[0], dtype=torch.float32, device=data.device)
     out["bits"] = stream_demod(data, out["ch_re"], out["ch_im"], ones, mode, max_syms)

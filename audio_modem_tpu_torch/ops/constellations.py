@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from audio_modem_tpu.configs import ModemMode
+from audio_modem_tpu_torch.configs import ModemMode
 
 BPS = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6}
 

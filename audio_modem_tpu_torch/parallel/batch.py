@@ -3,10 +3,9 @@ audio_modem_tpu/parallel/batch.py; BASELINE config 5).
 
 The batched full receive goes through kernel A
 (``kernels.receive.decode_fused``) at every window length: Hopper has no
-VMEM gate, and a batch of streams fills the card one CTA per stream. A
-single signal (B = 1) is another matter: the decoder sends it through
-``decode_long_fused``, whose streaming demod spreads the symbols over the
-card (see ``decoder._core_dispatch``). The frame-aligned demod goes through
+VMEM gate, and kernel A grids its stages over tiles and streams. A single
+signal (B = 1) takes the decoder's route, ``decode_long_fused`` (see
+``decoder._core_dispatch``). The frame-aligned demod goes through
 kernel B. The cadence-predicted decode (refine + CE + demod) is plain
 PyTorch.
 """
@@ -16,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import ModemMode
 from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fused
 # The plain receive pipeline (counterpart of _batch_decode_signals_xla) is
 # kernel A's plain version, kept beside the kernel in kernels/receive.py.

@@ -17,7 +17,7 @@ import zlib
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import FRAME_DATA, ModemMode
+from audio_modem_tpu_torch.configs import FRAME_DATA, ModemMode
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.parallel import batch
 

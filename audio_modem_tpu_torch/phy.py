@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from audio_modem_tpu.configs import ModemMode, OfdmProfile
+from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 from audio_modem_tpu_torch.ops import constellations as con
 from audio_modem_tpu_torch.ops.dft import synthesize_data_symbols, time_to_spec, time_to_spec_bins
 from audio_modem_tpu_torch.tables import profile_tables

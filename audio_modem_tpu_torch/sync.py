@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from audio_modem_tpu.configs import OfdmProfile
+from audio_modem_tpu_torch.configs import OfdmProfile
 from audio_modem_tpu_torch.tables import profile_tables
 
 AUTOCORR_THRESHOLD = 0.5
@@ -109,21 +109,19 @@ def _strided_windowed_sum(x: torch.Tensor, window: int, stride: int) -> torch.Te
     return windowed_sum(blocks, window // stride)
 
 
-def detect_preamble(
+def scan_metric(
     signal: torch.Tensor,
     profile: OfdmProfile,
     n_valid: torch.Tensor,
     min_pos: "torch.Tensor | int" = 0,
     min_energy: float = AUTOCORR_MIN_ENERGY,
     stride: int = 1,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Coarse Schmidl-Cox scan over [..., T] with first-peak commit.
-
-    Metric P^2/(Ra*Rb) over fft/2-sample halves; a position is valid when
-    d <= n_valid - fft, d >= min_pos and both energies exceed
-    ``min_energy``. Returns (coarse int32, best metric float32); coarse is
-    -1 when the best metric is <= 0.5. ``stride`` > 1 evaluates only
-    stride-aligned positions (safe up to CP/4; must divide fft/2)."""
+) -> torch.Tensor:
+    """Schmidl-Cox metric P^2/(Ra*Rb) over fft/2-sample halves at every
+    scan position of [..., T] -> [..., n_pos]; 0 where the position is not
+    valid (d > n_valid - fft, d < min_pos, or an energy <= ``min_energy``).
+    ``stride`` > 1 evaluates only stride-aligned positions (safe up to
+    CP/4; must divide fft/2)."""
     half = profile.fft_size // 2
     if half % stride:
         raise ValueError("stride must divide the half-symbol window")
@@ -148,18 +146,40 @@ def detect_preamble(
     nv = torch.as_tensor(n_valid, device=dev)[..., None]
     mp = torch.as_tensor(min_pos, device=dev)[..., None]
     valid = (d <= nv - 2 * half) & (d >= mp) & (ra > min_energy) & (rb > min_energy)
-    metric = torch.where(valid, (p * p) / torch.where(valid, ra * rb, 1.0), 0.0)
+    return torch.where(valid, (p * p) / torch.where(valid, ra * rb, 1.0), 0.0)
 
+
+def first_peak_commit(metric: torch.Tensor, stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """First-peak commit over a scan metric [..., n_pos]: the first position
+    where the metric drops below 0.7x its running max (once that max exceeds
+    0.5) closes the search; the best metric up to it and its first index
+    win. Returns (coarse int32 = index * stride, or -1 when the best metric
+    is <= 0.5; best metric float32)."""
+    n_pos = metric.shape[-1]
     runmax = torch.cummax(metric, dim=-1).values
     drop = (runmax > AUTOCORR_THRESHOLD) & (metric < 0.7 * runmax)
     first_drop = torch.where(
         drop.any(dim=-1), torch.argmax(drop.to(torch.uint8), dim=-1), n_pos - 1
     )
-    k = torch.arange(n_pos, device=dev)
+    k = torch.arange(n_pos, device=metric.device)
     prefix = torch.where(k <= first_drop[..., None], metric, 0.0)
     best = prefix.amax(dim=-1)
     idx = (torch.argmax(prefix, dim=-1) * stride).to(torch.int32)
     return torch.where(best > AUTOCORR_THRESHOLD, idx, -1).to(torch.int32), best
+
+
+def detect_preamble(
+    signal: torch.Tensor,
+    profile: OfdmProfile,
+    n_valid: torch.Tensor,
+    min_pos: "torch.Tensor | int" = 0,
+    min_energy: float = AUTOCORR_MIN_ENERGY,
+    stride: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coarse Schmidl-Cox scan over [..., T] with first-peak commit
+    (``scan_metric``, then ``first_peak_commit``). Returns (coarse int32,
+    best metric float32); coarse is -1 when the best metric is <= 0.5."""
+    return first_peak_commit(scan_metric(signal, profile, n_valid, min_pos, min_energy, stride), stride)
 
 
 def gather_windows(signal: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:

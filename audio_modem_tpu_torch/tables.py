@@ -28,7 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from audio_modem_tpu.configs import ModemMode, OfdmProfile
+from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 
 _FLOAT_KEYS = ("rx_active", "rx_data", "rx_pilot", "tx_data", "tx_pilot", "ce_known", "pre1", "header")
 _INDEX_KEYS = ("data_pos", "pilot_pos")

@@ -1,8 +1,10 @@
 """Kernels A and B and the streaming demod on the card against their plain
-versions, at small shapes. Marked ``cuda``: on a machine without a CUDA device each test skips
-with the reason (the CUDA kernels have no CPU or interpret mode).
+versions, at small shapes; kernel A's pipeline also at B = 1, 3 and 64 on
+windows that put its tiles' edges to the test. Marked ``cuda``: on a
+machine without a CUDA device each test skips with the reason (the CUDA
+kernels have no CPU or interpret mode).
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 on a machine with an NVIDIA Hopper GPU and nvcc builds the kernels and runs
 them."""
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, decoder, framing, phy
+from audio_modem_tpu_torch import MODES, api, decoder, framing, phy, sync
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
 from audio_modem_tpu_torch.parallel import batch
 
@@ -31,7 +33,7 @@ def cuda_device():
 
 def _windows(mode, n=3, size=64, noise=0.02, seed=5):
     rng = np.random.default_rng(seed)
-    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode).numpy()
+    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode, device="cpu").numpy()
     frames = frames + noise * rng.standard_normal(frames.shape).astype(np.float32)
     sym = mode.profile.symbol_len
     signals, n_valid = batch.pad_signals(list(frames), pad_len=frames.shape[1] + 2 * sym)
@@ -61,6 +63,82 @@ def test_kernel_a_matches_plain(cuda_device, name):
         assert torch.equal(out["bits"][i, :nb], ref["bits"][i, :nb])
 
 
+PROFILE_MODES = ["QPSK", "BPSK-ACOUSTIC", "BPSK-NARROW"]  # the standard, acoustic and narrowband profiles
+CASES = ["plain", "short", "min_pos", "noise", "straddle_scan_tile", "straddle_row_tile", "min_pos_past"]
+FRAME_BYTES = 48
+ROWS_PER_TILE, SCAN_TILE = 32, 512  # kernel A's tile sizes (csrc/receive.cu kRowsA, kScanTile)
+
+
+def _kernel_a_windows(mode, b: int, first_case: int, seed: int = 17):
+    """B windows of T samples (T a multiple of neither kernel A tile), stream
+    i holding case CASES[(first_case + i) % 7]: a frame in the open; n_valid
+    cutting the frame's last symbols; min_pos before the preamble; noise
+    only; a preamble across a scan tile's or a row tile's boundary; min_pos
+    past the frame. Returns numpy (signals, n_valid, min_pos, max_syms)."""
+    p = mode.profile
+    sym = p.symbol_len
+    rng = np.random.default_rng(seed + first_case)
+    frames = framing.build_data_chunk_frames([rng.bytes(FRAME_BYTES) for _ in range(4)], 0, mode, device="cpu")
+    frames = frames.numpy()[:, p.silence_pre_chunk(False) - 200 :]
+    flen = frames.shape[1]
+    scan_span = SCAN_TILE * sync.COARSE_STRIDE
+    row_span = ROWS_PER_TILE * sync.SUM_LANES
+    t = 3 * row_span + flen + 1000
+    assert t % scan_span and t % row_span
+    signals = (0.02 * rng.standard_normal((b, t))).astype(np.float32)
+    n_valid = np.full(b, t, np.int32)
+    min_pos = np.zeros(b, np.int32)
+    offsets = {"plain": 5000, "short": 20_000, "min_pos": 40_000, "noise": None,
+               "straddle_scan_tile": 2 * scan_span - 200 - sym // 2,
+               "straddle_row_tile": row_span - 200 - sym // 3, "min_pos_past": 7000}
+    for i in range(b):
+        case = CASES[(first_case + i) % len(CASES)]
+        off = offsets[case]
+        if off is not None:
+            signals[i, off : off + flen] += frames[i % len(frames)]
+        if case == "short":
+            n_valid[i] = off + flen - 2 * sym
+        if case == "min_pos":
+            min_pos[i] = off - 3000
+        if case == "min_pos_past":
+            min_pos[i] = off + flen
+    return signals, n_valid, min_pos, (t - 3 * sym) // sym
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROFILE_MODES)
+@pytest.mark.parametrize("b, first_case", [(1, c) for c in range(len(CASES))] + [(3, 2), (64, 0)])
+def test_kernel_a_pipeline_matches_plain(cuda_device, name, b, first_case):
+    """Kernel A's six launches against decode_fused_reference: start, coarse,
+    coarse metric and detected equal; fine metric within 1e-5, channel
+    within 1e-4; every framed stream detected, and no flipped bit in its
+    frame's symbols inside n_valid."""
+    mode = MODES[name]
+    sym = mode.profile.symbol_len
+    signals, n_valid, min_pos, max_syms = _kernel_a_windows(mode, b, first_case)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (signals, n_valid, min_pos)]
+    reset_launch_counts()
+    out = receive.decode_fused(*args, mode, max_syms)
+    ref = receive.decode_fused_reference(*args, mode, max_syms)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_fused"] == 1
+    for key in ("start", "coarse", "coarse_metric", "detected"):
+        assert torch.equal(out[key], ref[key]), (key, out[key][:8].tolist(), ref[key][:8].tolist())
+    same = out["fine_metric"] == ref["fine_metric"]
+    assert torch.where(same, 0.0, (out["fine_metric"] - ref["fine_metric"]).abs()).max().item() < 1e-5
+    for key in ("ch_re", "ch_im"):
+        assert (out[key] - ref[key]).abs().max().item() < 1e-4
+    det = out["detected"].tolist()
+    framed = [CASES[(first_case + i) % len(CASES)] not in ("noise", "min_pos_past") for i in range(b)]
+    assert all(d for d, f in zip(det, framed) if f)
+    bps_sym = out["bits"].shape[1] // max_syms
+    n_sym_frame = framing.num_symbols_for_payload(FRAME_BYTES + 11, mode)
+    for i, s in enumerate(out["start"].tolist()):
+        if det[i]:  # the frame's own symbols inside n_valid (past them lies noise)
+            nb = min(max((int(n_valid[i]) - (s + 3 * sym)) // sym, 0), n_sym_frame) * bps_sym
+            assert nb > 0 and torch.equal(out["bits"][i, :nb], ref["bits"][i, :nb])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", FIVE_MODES)
 def test_kernel_b_matches_plain(cuda_device, name):
@@ -87,7 +165,7 @@ def test_stream_demod_matches_plain(cuda_device, name, b, n_sym):
     p = mode.profile
     sym = p.symbol_len
     rng = np.random.default_rng(21)
-    base = framing.build_data_chunk_frames([rng.bytes(400) for _ in range(min(b, 4))], 0, mode).numpy()
+    base = framing.build_data_chunk_frames([rng.bytes(400) for _ in range(min(b, 4))], 0, mode, device="cpu").numpy()
     frames = base[np.arange(b) % len(base), p.silence_pre_chunk(False) :]
     frames = frames + 0.02 * rng.standard_normal(frames.shape).astype(np.float32)
     t = torch.from_numpy(frames).to(cuda_device)
@@ -125,27 +203,27 @@ def _decode_case(case: str):
     if case == "clean":
         mode = MODES["QPSK"]
         payload = np.random.default_rng(12).bytes(2000)
-        return framing.build_transmit_signal(payload, mode, "c.bin").numpy(), mode, {}, payload
+        return framing.build_transmit_signal(payload, mode, "c.bin", device="cpu").numpy(), mode, {}, payload
     if case == "tracked":
         from audio_modem_tpu import channel
 
         mode = MODES["BPSK-ACOUSTIC"]
         payload = np.random.default_rng(11).bytes(5200)
-        sig = framing.build_transmit_signal(payload, mode, "d.bin").numpy()
+        sig = framing.build_transmit_signal(payload, mode, "d.bin", device="cpu").numpy()
         spec = channel.ChannelSpec(clock_ppm=200.0, snr_db=25.0)
         return channel.apply_channel_np(sig, spec, seed=3), mode, {"track_timing": True}, payload
     if case == "fec":
         mode = MODES["BPSK-ACOUSTIC"]
         sym = mode.profile.symbol_len
         payload = np.random.default_rng(41).bytes(150)
-        sig = _awgn(framing.build_transmit_signal(payload, mode, "e.bin", fec=True).numpy(), 30.0, 4)
+        sig = _awgn(framing.build_transmit_signal(payload, mode, "e.bin", fec=True, device="cpu").numpy(), 30.0, 4)
         s0 = mode.profile.silence_pre_legacy() + 8 * sym
         sig[s0 : s0 + 3 * sym] = 0.0
         return sig, mode, {}, payload
     mode = MODES["BPSK-REPEAT"]
     p = mode.profile
     payload = np.random.default_rng(42).bytes(96)
-    sig = framing.build_transmit_signal(payload, mode, "f.bin").numpy()
+    sig = framing.build_transmit_signal(payload, mode, "f.bin", device="cpu").numpy()
     if case == "soft":  # data region at -2 dB: the hard vote fails
         d0 = p.silence_pre_legacy() + 3 * p.symbol_len
         sig[d0:] = _awgn(sig[d0:], -2.0, 4)
@@ -159,7 +237,7 @@ def test_api_decode_on_card_matches_cpu(cuda_device, case):
     """Every rung of the decoder's retry ladder on the card gives what the
     plain path gives on the CPU, through the streaming-demod kernel."""
     sig, mode, kw, payload = _decode_case(case)
-    ref, rinfo = api.decode(sig, mode, **kw)
+    ref, rinfo = api.decode(sig, mode, device="cpu", **kw)
     reset_launch_counts()
     out, info = api.decode(torch.from_numpy(sig.copy()).to(cuda_device), mode, device=cuda_device, **kw)
     assert launch_counts()["stream_demod"] >= 1

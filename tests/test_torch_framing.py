@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from audio_modem_tpu import framing as jframing
-from audio_modem_tpu.configs import MODES
+from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu_torch import framing
+from audio_modem_tpu_torch.configs import MODES
 
 torch.set_num_threads(2)
 
@@ -48,31 +49,32 @@ def test_codecs_byte_identical(seed):
             for by in (ours, _corrupt(rng, ours), framing.wrap_fec(ours), _corrupt(rng, framing.wrap_fec(ours))):
                 assert _same(framing.parse_payload_bytes(by), jframing.parse_payload_bytes(by))
             assert framing.wrap_fec(ours) == jframing.wrap_fec(ref)
-        for mode in MODES.values():
+        for name, mode in MODES.items():
+            jmode = JMODES[name]
             n = len(data)
-            assert np.array_equal(framing.payload_to_bits(data, mode), jframing.payload_to_bits(data, mode))
-            assert framing.num_symbols_for_payload(n, mode) == jframing.num_symbols_for_payload(n, mode)
-            assert framing.estimate_frame_samples(n, mode) == jframing.estimate_frame_samples(n, mode)
+            assert np.array_equal(framing.payload_to_bits(data, mode), jframing.payload_to_bits(data, jmode))
+            assert framing.num_symbols_for_payload(n, mode) == jframing.num_symbols_for_payload(n, jmode)
+            assert framing.estimate_frame_samples(n, mode) == jframing.estimate_frame_samples(n, jmode)
             for first in (True, False):
                 assert framing.estimate_frame_samples_with_silence(
                     n, mode, first
-                ) == jframing.estimate_frame_samples_with_silence(n, mode, first)
+                ) == jframing.estimate_frame_samples_with_silence(n, jmode, first)
         assert framing.fec_wire_len(len(data)) == jframing.fec_wire_len(len(data))
 
 
 @pytest.mark.parametrize("name", sorted(MODES))
 def test_tx_waveform_matches_jax(name):
-    mode = MODES[name]
+    mode, jmode = MODES[name], JMODES[name]
     p = mode.profile
     rng = np.random.default_rng(17)
     chunks = [rng.bytes(40) for _ in range(3)]
-    ref = jframing.build_data_chunk_frames(chunks, 5, mode)
-    out = framing.build_data_chunk_frames(chunks, 5, mode).numpy()
+    ref = jframing.build_data_chunk_frames(chunks, 5, jmode)
+    out = framing.build_data_chunk_frames(chunks, 5, mode, device="cpu").numpy()
     assert out.shape == ref.shape
     assert np.abs(out - ref).max() < 3e-5
     u8 = np.frombuffer(b"".join(chunks), np.uint8).reshape(3, 40)
     n_sym = framing.num_symbols_for_payload(40, mode)
     core = framing._synth_frames_core(torch.from_numpy(u8.copy()), mode, n_sym, 7, 3).numpy()
-    jcore = np.asarray(jframing._synth_frames_core(jnp.asarray(u8), mode, n_sym, 7, 3))
+    jcore = np.asarray(jframing._synth_frames_core(jnp.asarray(u8), jmode, n_sym, 7, 3))
     assert core.shape == jcore.shape and np.abs(core - jcore).max() < 3e-5
     assert p.silence_pre_chunk(False) > 0 and (out[:, : p.silence_pre_chunk(False)] == 0).all()

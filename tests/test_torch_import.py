@@ -1,49 +1,67 @@
-"""The PyTorch port imports without JAX, nvcc or a GPU, and CPU tensors take
-the plain path without touching the kernel launch counters."""
+"""The PyTorch port imports without JAX, without the JAX package, without
+nvcc and without a GPU; its entry points default to the card; and CPU
+tensors take the plain path without touching the kernel launch counters."""
 
+import ast
+import inspect
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES
+from audio_modem_tpu_torch import MODES, api, decoder, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "audio_modem_tpu_torch"
 
-MODULES = [
-    "audio_modem_tpu_torch",
-    "audio_modem_tpu_torch.tables",
-    "audio_modem_tpu_torch.ops.bits",
-    "audio_modem_tpu_torch.ops.constellations",
-    "audio_modem_tpu_torch.ops.dft",
-    "audio_modem_tpu_torch.sync",
-    "audio_modem_tpu_torch.phy",
-    "audio_modem_tpu_torch.framing",
-    "audio_modem_tpu_torch.kernels",
-    "audio_modem_tpu_torch.kernels._build",
-    "audio_modem_tpu_torch.kernels.receive",
-    "audio_modem_tpu_torch.parallel.batch",
-    "audio_modem_tpu_torch.parallel.multi_receiver",
-    "audio_modem_tpu_torch.decoder",
-    "audio_modem_tpu_torch.api",
+# every module of the port, and chip_smoke (whose main() imports the rest)
+MODULES = sorted(
+    ".".join(path.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for path in PACKAGE.rglob("*.py")
+) + ["chip_smoke"]
+
+ENTRY_POINTS = [
+    (api, "encode_legacy"), (api, "encode_chunked"), (api, "encode"), (api, "decode"),
+    (decoder, "decode_raw"), (decoder, "decode_signal"), (decoder, "pad_aligned_frame"),
+    (decoder, "decode_chunk_frame"),
+    (framing, "synthesize_frames"), (framing, "build_data_chunk_frames"), (framing, "synthesize_frame"),
+    (framing, "build_transmit_signal"), (framing, "build_metadata_frame"), (framing, "build_data_chunk_frame"),
 ]
 
 
+def _imports_of_jax_package(path: Path) -> list[str]:
+    """The ``import audio_modem_tpu[...]`` and ``from audio_modem_tpu[...]``
+    statements of one source file."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) else []
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n == "audio_modem_tpu" or n.startswith("audio_modem_tpu.")]
+    return found
+
+
 def test_imports_with_jax_blocked():
+    """Every module imports with ``jax``, ``triton`` and ``audio_modem_tpu``
+    blocked, and afterwards no module of either package is loaded."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['triton'] = None\n"
+        "for blocked in ('jax', 'triton', 'audio_modem_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
         "import importlib\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert not [k for k in loaded if k == 'jax' or k.startswith('jax.')]\n"
+        "assert not [k for k in loaded if k == 'audio_modem_tpu' or k.startswith('audio_modem_tpu.')]\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -51,6 +69,35 @@ def test_imports_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_no_source_imports_the_jax_package():
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
+
+
+@pytest.mark.parametrize("module, name", ENTRY_POINTS, ids=[f"{m.__name__.split('.')[-1]}.{n}" for m, n in ENTRY_POINTS])
+def test_entry_points_default_to_the_card(module, name):
+    assert inspect.signature(getattr(module, name)).parameters["device"].default == "cuda"
+
+
+def test_decode_without_device_raises_without_a_card():
+    """Without a CUDA device a call that does not name the CPU raises; with
+    one it runs there."""
+    sig = np.zeros(40000, np.float32)
+    if torch.cuda.is_available():
+        result, info = api.decode(sig, "QPSK")
+        assert isinstance(result, framing.FrameError) and info is None
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decode(sig, "QPSK")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.encode(b"payload", "QPSK")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decoder.decode_chunk_frame(sig, MODES["QPSK"])
+    result, info = api.decode(sig, "QPSK", device="cpu")
+    assert isinstance(result, framing.FrameError) and info is None
 
 
 def test_tf32_is_off():
@@ -78,7 +125,5 @@ def test_cpu_tensors_take_the_plain_path():
 
 
 def test_mixed_devices_raise():
-    import pytest
-
     with pytest.raises(ValueError):
         kernels.runs_on_kernel(torch.zeros(1), torch.zeros(1, device="meta"))

@@ -10,11 +10,12 @@ import torch
 
 from audio_modem_tpu import phy as jphy
 from audio_modem_tpu import sync as jsync
-from audio_modem_tpu.configs import MODES, OFDM_PROFILES
+from audio_modem_tpu.configs import MODES as JMODES, OFDM_PROFILES as JPROFILES
 from audio_modem_tpu.ops import bits as jbits
 from audio_modem_tpu.ops import constellations as jcon
 from audio_modem_tpu.ops import dft as jdft
 from audio_modem_tpu_torch import framing, phy, sync, tables
+from audio_modem_tpu_torch.configs import MODES, OFDM_PROFILES
 from audio_modem_tpu_torch.ops import bits, constellations
 
 torch.set_num_threads(2)
@@ -29,7 +30,7 @@ def _t(a):
 def _noisy_frames(mode, n=2, size=64, noise=0.02, seed=7, pad_syms=2):
     rng = np.random.default_rng(seed)
     # the port's TX (held to the JAX TX in test_torch_framing.py) skips a JAX compile
-    frames = list(framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode).numpy())
+    frames = list(framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode, device="cpu").numpy())
     frames = [f + noise * rng.standard_normal(len(f)).astype(np.float32) for f in frames]
     t = len(frames[0]) + pad_syms * mode.profile.symbol_len
     t = -(-t // 128) * 128
@@ -41,20 +42,20 @@ def _noisy_frames(mode, n=2, size=64, noise=0.02, seed=7, pad_syms=2):
 
 @pytest.mark.parametrize("name", sorted(OFDM_PROFILES))
 def test_tables_from_jax_arrays_equal_profile_tables(name):
-    p = OFDM_PROFILES[name]
-    tx_data, tx_pilot = jdft.tx_data_tables(p)
-    pre1, t_energy = jsync._template(p)
-    bt = jphy._bin_tables(p)
+    p, jp = OFDM_PROFILES[name], JPROFILES[name]
+    tx_data, tx_pilot = jdft.tx_data_tables(jp)
+    pre1, t_energy = jsync._template(jp)
+    bt = jphy._bin_tables(jp)
     arrays = {
-        "rx_active": jdft._rx_matrix(p),
-        "rx_data": jdft._rx_matrix_for_bins(p, tuple(int(b) for b in p.data_bins)),
-        "rx_pilot": jdft._rx_matrix_for_bins(p, tuple(int(b) for b in p.pilot_bins)),
+        "rx_active": jdft._rx_matrix(jp),
+        "rx_data": jdft._rx_matrix_for_bins(jp, tuple(int(b) for b in jp.data_bins)),
+        "rx_pilot": jdft._rx_matrix_for_bins(jp, tuple(int(b) for b in jp.pilot_bins)),
         "tx_data": tx_data,
         "tx_pilot": tx_pilot,
         "ce_known": bt["ce_known"],
         "pre1": pre1,
         "t_energy": t_energy,
-        "header": np.concatenate([p.preamble1, p.preamble2, p.ce_symbol]),
+        "header": np.concatenate([jp.preamble1, jp.preamble2, jp.ce_symbol]),
         "data_pos": bt["data_pos"],
         "pilot_pos": bt["pilot_pos"],
     }
@@ -72,7 +73,8 @@ def test_map_bits_and_demap(name):
     mode = MODES[name]
     c = mode.constellation
     bps = constellations.BPS[c]
-    assert bps == mode.bps and constellations.bits_per_symbol(mode) == mode.bits_per_symbol
+    assert bps == mode.bps == JMODES[name].bps
+    assert constellations.bits_per_symbol(mode) == mode.bits_per_symbol == JMODES[name].bits_per_symbol
     rng = np.random.default_rng(3)
     b = rng.integers(0, 2, (3, 40 * bps)).astype(np.int8)
     jre, jim = jcon.map_bits(c, jnp.asarray(b))
@@ -120,11 +122,11 @@ def test_pairwise_row_sum_and_preprocess():
 
 @pytest.mark.parametrize("min_pos", [0, 3000])
 def test_detect_preamble(min_pos):
-    mode = MODES["QPSK"]
+    mode, jmode = MODES["QPSK"], JMODES["QPSK"]
     sig, nv = _noisy_frames(mode, n=3, seed=11)
     pre = np.asarray(jax.jit(jsync.preprocess)(jnp.asarray(sig), jnp.asarray(nv)))
     mp = np.full(3, min_pos, np.int32)
-    jc, jm = jax.jit(lambda x, n, m: jsync.detect_preamble(x, mode.profile, n, min_pos=m, stride=16))(
+    jc, jm = jax.jit(lambda x, n, m: jsync.detect_preamble(x, jmode.profile, n, min_pos=m, stride=16))(
         jnp.asarray(pre), jnp.asarray(nv), jnp.asarray(mp)
     )
     c, m = sync.detect_preamble(_t(pre), mode.profile, _t(nv), min_pos=_t(mp), stride=16)
@@ -134,22 +136,22 @@ def test_detect_preamble(min_pos):
         assert ((c.numpy() == -1) | (c.numpy() >= min_pos)).all()
     else:
         assert (c.numpy() >= 0).all()
-    jc1, _ = jax.jit(lambda x, n: jsync.detect_preamble(x, mode.profile, n))(jnp.asarray(pre[:1]), jnp.asarray(nv[:1]))
+    jc1, _ = jax.jit(lambda x, n: jsync.detect_preamble(x, jmode.profile, n))(jnp.asarray(pre[:1]), jnp.asarray(nv[:1]))
     c1, _ = sync.detect_preamble(_t(pre[:1]), mode.profile, _t(nv[:1]))
     assert np.array_equal(np.asarray(jc1), c1.numpy())
 
 
 @pytest.mark.parametrize("name", ["QPSK", "BPSK-ACOUSTIC", "BPSK-NARROW"])
 def test_refine_estimate_and_demodulate(name):
-    mode = MODES[name]
-    p = mode.profile
+    mode, jmode = MODES[name], JMODES[name]
+    p, jp = mode.profile, jmode.profile
     sym = p.symbol_len
     sig, nv = _noisy_frames(mode, n=2, seed=13)
     pre = np.asarray(jax.jit(jsync.preprocess)(jnp.asarray(sig), jnp.asarray(nv)))
     ext = np.pad(pre, ((0, 0), (0, 8 * sym)))
-    coarse = np.asarray(jax.jit(lambda x, n: jsync.detect_preamble(x, p, n, stride=16)[0])(jnp.asarray(pre), jnp.asarray(nv)))
+    coarse = np.asarray(jax.jit(lambda x, n: jsync.detect_preamble(x, jp, n, stride=16)[0])(jnp.asarray(pre), jnp.asarray(nv)))
     coarse = np.maximum(coarse + 37, 0).astype(np.int32)  # off the plateau, inside the radius
-    js, jm = jax.jit(jax.vmap(lambda s, c, n: jsync.refine_xcorr(s, c, p, n)))(
+    js, jm = jax.jit(jax.vmap(lambda s, c, n: jsync.refine_xcorr(s, c, jp, n)))(
         jnp.asarray(ext), jnp.asarray(coarse), jnp.asarray(nv)
     )
     st, m = sync.refine_xcorr(_t(ext), _t(coarse), p, _t(nv))
@@ -161,11 +163,11 @@ def test_refine_estimate_and_demodulate(name):
     data = np.stack(
         [ext[i, s + 3 * sym : s + (3 + n_sym) * sym].reshape(n_sym, sym) for i, s in enumerate(np.asarray(js))]
     )
-    jre, jim = jax.jit(lambda x: jphy.estimate_channel(x, p))(jnp.asarray(ce))
+    jre, jim = jax.jit(lambda x: jphy.estimate_channel(x, jp))(jnp.asarray(ce))
     re, im = phy.estimate_channel(_t(ce), p)
     np.testing.assert_allclose(re.numpy(), np.asarray(jre), atol=1e-4)
     np.testing.assert_allclose(im.numpy(), np.asarray(jim), atol=1e-4)
-    jb = np.asarray(jax.jit(lambda x, a, b: jphy.demodulate(x, a, b, mode))(jnp.asarray(data), jre, jim))
+    jb = np.asarray(jax.jit(lambda x, a, b: jphy.demodulate(x, a, b, jmode))(jnp.asarray(data), jre, jim))
     assert np.array_equal(jb, phy.demodulate(_t(data), re, im, mode).numpy())
 
 
@@ -173,5 +175,5 @@ def test_sliding_correlate():
     p = OFDM_PROFILES["standard"]
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 1500)).astype(np.float32)
-    ref = np.asarray(jsync.sliding_correlate(jnp.asarray(x), p))
+    ref = np.asarray(jsync.sliding_correlate(jnp.asarray(x), JPROFILES["standard"]))
     np.testing.assert_allclose(sync.sliding_correlate(_t(x), p).numpy(), ref, atol=1e-4)

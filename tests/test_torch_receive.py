@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu.configs import MODES
+from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu.kernels import receive as jreceive
 from audio_modem_tpu.parallel.batch import _batch_decode_chunk_frames_xla, _batch_decode_signals_xla
 from audio_modem_tpu.utils.wav import read_wav
 from audio_modem_tpu_torch import framing
+from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.kernels import receive
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
@@ -29,7 +30,7 @@ GOLDEN = Path(__file__).parent / "golden"
 
 def _signals(mode, n=2, size=48, noise=0.02, seed=7):
     rng = np.random.default_rng(seed)
-    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode).numpy()
+    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode, device="cpu").numpy()
     frames = frames + noise * rng.standard_normal(frames.shape).astype(np.float32)
     sym = mode.profile.symbol_len
     signals, n_valid = batch.pad_signals(list(frames), pad_len=frames.shape[1] + 2 * sym)
@@ -38,15 +39,15 @@ def _signals(mode, n=2, size=48, noise=0.02, seed=7):
 
 @pytest.mark.parametrize("name", FIVE_MODES)
 def test_decode_fused_reference_matches_jax(name):
-    mode = MODES[name]
+    mode, jmode = MODES[name], JMODES[name]
     sym = mode.profile.symbol_len
     signals, n_valid, max_syms = _signals(mode)
     zeros = np.zeros(len(n_valid), np.int32)
     xla = _batch_decode_signals_xla(
-        jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), mode, max_syms
+        jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), jmode, max_syms
     )
     pallas = jreceive.decode_fused(
-        jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), mode, max_syms, interpret=True
+        jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), jmode, max_syms, interpret=True
     )
     out = receive.decode_fused(
         torch.from_numpy(signals), torch.from_numpy(n_valid), torch.from_numpy(zeros), mode, max_syms
@@ -78,7 +79,7 @@ def test_decode_fused_reference_no_preamble():
     signals = (rng.standard_normal((2, 8192)) * 0.05).astype(np.float32)
     n_valid = np.asarray([8192, 4000], np.int32)
     zeros = np.zeros(2, np.int32)
-    ref = _batch_decode_signals_xla(jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), mode, 4)
+    ref = _batch_decode_signals_xla(jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), JMODES["QPSK"], 4)
     out = receive.decode_fused(torch.from_numpy(signals), torch.from_numpy(n_valid), torch.from_numpy(zeros), mode, 4)
     assert not out["detected"].any()
     assert np.array_equal(out["coarse"].numpy(), np.asarray(ref["coarse"]))
@@ -87,17 +88,17 @@ def test_decode_fused_reference_no_preamble():
 
 @pytest.mark.parametrize("name", FIVE_MODES)
 def test_decode_chunks_fused_reference_matches_jax(name):
-    mode = MODES[name]
+    mode, jmode = MODES[name], JMODES[name]
     p = mode.profile
     sym = p.symbol_len
     rng = np.random.default_rng(11)
     size = 40
     n_sym = framing.num_symbols_for_payload(size + 11, mode)
-    fr = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(3)], 0, mode).numpy()
+    fr = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(3)], 0, mode, device="cpu").numpy()
     clean = fr[:, p.silence_pre_chunk(False) :][:, : (3 + n_sym) * sym]
     fr = clean + 0.02 * rng.standard_normal(clean.shape).astype(np.float32)
-    pallas = np.asarray(jreceive.decode_chunks_fused(jnp.asarray(fr), mode, n_sym, interpret=True))
-    xla = np.asarray(_batch_decode_chunk_frames_xla(jnp.asarray(fr), mode, n_sym))
+    pallas = np.asarray(jreceive.decode_chunks_fused(jnp.asarray(fr), jmode, n_sym, interpret=True))
+    xla = np.asarray(_batch_decode_chunk_frames_xla(jnp.asarray(fr), jmode, n_sym))
     out = receive.decode_chunks_fused(torch.from_numpy(fr), mode, n_sym).numpy()
     assert np.array_equal(out, xla) and np.array_equal(out, pallas)
     packed = batch.batch_decode_chunk_frames_packed(torch.from_numpy(clean), mode, n_sym).numpy()

@@ -11,10 +11,11 @@ import pytest
 import torch
 
 from audio_modem_tpu import framing as jframing
-from audio_modem_tpu.configs import MODES
+from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu.kernels import receive as jreceive
 from audio_modem_tpu.parallel.batch import _batch_decode_chunk_frames_xla, _batch_decode_signals_xla
 from audio_modem_tpu_torch import framing, phy
+from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.kernels import receive
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
@@ -34,7 +35,7 @@ def _aligned_frames(mode, n=3, seed=13, noise=0.02):
     n_sym = framing.num_symbols_for_payload(size + 11, mode)
     fr = []
     for s in range(n):
-        f = jframing.build_data_chunk_frame(rng.bytes(size), s, mode)
+        f = jframing.build_data_chunk_frame(rng.bytes(size), s, JMODES[mode.name])
         f = f[p.silence_pre_chunk(False) :][: (3 + n_sym) * sym]
         fr.append(f + noise * rng.standard_normal(len(f)).astype(np.float32))
     return np.stack(fr), n_sym
@@ -42,10 +43,10 @@ def _aligned_frames(mode, n=3, seed=13, noise=0.02):
 
 @pytest.mark.parametrize("name", FIVE_MODES)
 def test_decode_chunks_fused_stream_matches_jax(name):
-    mode = MODES[name]
+    mode, jmode = MODES[name], JMODES[name]
     frames, n_sym = _aligned_frames(mode)
-    jax_stream = np.asarray(jreceive.decode_chunks_fused_stream(jnp.asarray(frames), mode, n_sym, interpret=True))
-    xla = np.asarray(_batch_decode_chunk_frames_xla(jnp.asarray(frames), mode, n_sym))
+    jax_stream = np.asarray(jreceive.decode_chunks_fused_stream(jnp.asarray(frames), jmode, n_sym, interpret=True))
+    xla = np.asarray(_batch_decode_chunk_frames_xla(jnp.asarray(frames), jmode, n_sym))
     out = receive.decode_chunks_fused_stream(torch.from_numpy(frames), mode, n_sym).numpy()
     plain = receive.decode_chunks_fused_reference(torch.from_numpy(frames), mode, n_sym).numpy()
     assert out.shape == (len(frames), n_sym * bits_per_symbol(mode)) and out.dtype == np.int8
@@ -63,8 +64,9 @@ def test_stream_pair_and_extract_routes_qpsk(n_frames, n_sym):
     frames, _ = _aligned_frames(mode, n=n_frames, seed=31 + n_sym)
     frames = frames[:, : (3 + n_sym) * mode.profile.symbol_len]
     fr = jnp.asarray(frames)
-    pair = np.asarray(jreceive.decode_chunks_fused_stream(fr, mode, n_sym, interpret=True))
-    extract = np.asarray(jreceive.decode_chunks_fused_stream(fr, mode, n_sym, interpret=True, force_extract=True))
+    jmode = JMODES["QPSK"]
+    pair = np.asarray(jreceive.decode_chunks_fused_stream(fr, jmode, n_sym, interpret=True))
+    extract = np.asarray(jreceive.decode_chunks_fused_stream(fr, jmode, n_sym, interpret=True, force_extract=True))
     out = receive.decode_chunks_fused_stream(torch.from_numpy(frames), mode, n_sym).numpy()
     assert np.array_equal(out, pair) and np.array_equal(out, extract)
 
@@ -88,7 +90,7 @@ def test_stream_demod_reference_scales_and_pads(name):
 
 def _signals(mode, n=2, size=48, noise=0.02, seed=7):
     rng = np.random.default_rng(seed)
-    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode).numpy()
+    frames = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(n)], 0, mode, device="cpu").numpy()
     frames = frames + noise * rng.standard_normal(frames.shape).astype(np.float32)
     sym = mode.profile.symbol_len
     signals, n_valid = batch.pad_signals(list(frames), pad_len=frames.shape[1] + 2 * sym)
@@ -101,7 +103,7 @@ def test_decode_long_fused_matches_jax(name):
     sym = mode.profile.symbol_len
     signals, n_valid, max_syms = _signals(mode)
     zeros = np.zeros(len(n_valid), np.int32)
-    args = (jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), mode, max_syms)
+    args = (jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), JMODES[name], max_syms)
     jlong = jreceive.decode_long_fused(*args, interpret=True)
     xla = _batch_decode_signals_xla(*args)
     out = receive.decode_long_fused(
@@ -127,7 +129,9 @@ def test_decode_long_fused_no_preamble():
     signals = (rng.standard_normal((2, 16384)) * 0.05).astype(np.float32)
     n_valid = np.asarray([16384, 9000], np.int32)
     zeros = np.zeros(2, np.int32)
-    ref = jreceive.decode_long_fused(jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), mode, 8, interpret=True)
+    ref = jreceive.decode_long_fused(
+        jnp.asarray(signals), jnp.asarray(n_valid), jnp.asarray(zeros), JMODES["QPSK"], 8, interpret=True
+    )
     out = receive.decode_long_fused(torch.from_numpy(signals), torch.from_numpy(n_valid), torch.from_numpy(zeros), mode, 8)
     assert not out["detected"].any()
     assert np.array_equal(out["coarse"].numpy(), np.asarray(ref["coarse"]))

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu.configs import MODES
+from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu.parallel import multi_receiver as jmr
 from audio_modem_tpu_torch import framing
+from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.parallel import multi_receiver as mr
 
 torch.set_num_threads(2)
@@ -54,7 +55,7 @@ def test_turbo_round_matches_jax(noise):
     zeros = np.zeros(N_STREAMS, np.int32)
     ref = np.asarray(
         jmr._batch_window_decode_multi(
-            jnp.asarray(windows), jnp.asarray(zeros), jnp.asarray(n_valid), mode, n_sym, K, cadence
+            jnp.asarray(windows), jnp.asarray(zeros), jnp.asarray(n_valid), JMODES["QPSK"], n_sym, K, cadence
         )
     )
     out = mr._batch_window_decode_multi(
@@ -77,7 +78,7 @@ def test_turbo_round_pred0_matches_jax():
     _, starts, _ = mr._unpack_round(first)
     pred0 = (starts[:, 0] + 3).astype(np.int32)  # a few samples of drift off the true start
     core = jax.jit(
-        partial(jmr._multi_decode_core, mode=mode, n_sym_frame=n_sym, k_frames=K, cadence=cadence)
+        partial(jmr._multi_decode_core, mode=JMODES["QPSK"], n_sym_frame=n_sym, k_frames=K, cadence=cadence)
     )
     ref = np.asarray(core(jnp.asarray(windows), jnp.asarray(n_valid), None, pred0=jnp.asarray(pred0)))
     out = mr._multi_decode_core(
