@@ -2,12 +2,13 @@
 // the frame-aligned chunk demod (kernel B) and the streaming demod of a data
 // region whose channel is already known, with a plain C interface for ctypes
 // (see kernels/_build.py). A is a pipeline of six launches gridded over
-// (tiles or symbol groups, streams); B runs one CTA per frame; the streaming
-// demod one CTA per (group of kGroup symbols, stream).
+// (tiles or symbol tiles, streams); B is two launches (peak; CE and demod)
+// gridded over (chunks or symbol tiles, frames); the streaming demod one CTA
+// per (symbol tile, stream).
 //
 // All three end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as the
-// device function demod_group, so one rounding discipline serves all three.
+// device function demod_tile, so one rounding discipline serves all three.
 // Everything is float32. Where a sum decides the coarse
 // sync (preprocess mean, scan block and window sums) the order of additions
 // is the one the plain PyTorch version (sync.py) uses, and the arithmetic
@@ -22,14 +23,18 @@
 namespace {
 
 constexpr int kThreadsA = 1024;  // kernel A's per-lane and per-stream stages
-constexpr int kThreadsB = 512;   // kernel B: one CTA per frame
-constexpr int kThreadsS = 256;   // stream demod: one CTA per (symbol group, stream)
+constexpr int kThreadsPeak = 256;  // kernel B's peak: one CTA per (chunk of a frame, frame)
+constexpr int kPeakChunk = 4096;   // samples per peak CTA
+constexpr int kFft = 512;        // DFT size of every profile
 constexpr int kSumLanes = 1024;  // sync.SUM_LANES
 constexpr int kStride = 16;      // sync.COARSE_STRIDE
-constexpr int kHalfBlocks = 16;  // (fft / 2) / kStride for fft = 512
+constexpr int kHalfBlocks = 16;  // (kFft / 2) / kStride
 constexpr int kMaxSym = 768;     // longest symbol of any profile (narrowband)
 constexpr int kMaxRegion = 6 * 256 + 1 + kMaxSym - 1;  // refine region at cp = 256
-constexpr int kGroup = 8;        // data symbols per demod pass (and per stream-demod CTA)
+static_assert(kFft == 2 * kHalfBlocks * kStride, "the scan's window is half a DFT");
+constexpr int kKC = 16;          // taps per staged chunk of the demod table
+static_assert(kFft % kKC == 0 && kKC % 4 == 0, "the taps are whole chunks of whole quads");
+constexpr int kStages = 3;       // chunks of the demod table in flight per CTA
 constexpr float kAutocorrThreshold = 0.5f;
 constexpr float kMinEnergy = 0.01f;
 constexpr float kXcorrThreshold = 0.1f;
@@ -38,11 +43,10 @@ constexpr float kXcorrMinDenom = 0.001f;
 struct Demod {
   const float* rx_active;  // [fft, 2*n_active]
   const float* ce_known;   // [n_active]
-  const float* rx_data;    // [fft, 2*nd]
-  const float* rx_pilot;   // [fft, 2*npi]
+  const float* rx_demod;   // [fft, ncol_pad]: data cos | -sin, pilot cos | -sin, zero columns
   const int* data_pos;     // [nd]
   const int* pilot_pos;    // [npi]
-  int fft, cp, n_active, nd, npi, bps;
+  int fft, cp, n_active, nd, npi, ncol_pad, bps;
   float qam_scale;
 };
 
@@ -125,152 +129,359 @@ __device__ int demap_index(float cr, float ci, int bps, float scale) {
   return (qam_axis_bits(ci, scale, bpa) << bpa) | qam_axis_bits(cr, scale, bpa);
 }
 
-int demod_smem_floats(const Demod& d) {
-  return 2 * d.n_active + 3 * d.nd + 3 * d.npi + kGroup * d.fft +
-         kGroup * (2 * d.nd + 2 * d.npi) + kGroup;
-}
+// ---- the demod tile ----
+//
+// The DFT of a tile of symbols at the data and pilot bins is the product
+// [MT, fft] x [fft, ncol_pad] against the padded table rx_demod, in float32
+// on the CUDA cores (the tensor cores round differently). What bounds it on
+// the H100: FMA rate. 2 * fft * ncol flops per symbol (0.45 MFLOP on the
+// standard profile) make the byte bound of chip_smoke.py irrelevant here:
+// the launches reach 17-31% of the fp32 peak (tools/profile_torch_receive.py
+// prints their times beside torch.matmul's for the same product). With
+// clock64 around the tile's phases, the multiply is most of a CTA's time,
+// the table's chunks arrive before they are waited for, and staging and
+// epilogue, which nothing overlaps when an SM holds one CTA, take the
+// rest. The design is a register-blocked product:
+//   - a CTA owns MT = RM * TM symbols of one stream and all columns (the
+//     epilogue needs a symbol's pilots before its data), on a TM x TN grid
+//     of threads, each with RM x RN accumulators: a tap costs a thread
+//     (RM + RN) / 4 16-byte shared loads for RM * RN FMAs. More warps beat
+//     larger blocks at every width that was tried (8x8 blocks on half the
+//     threads, a two-dimensional warp layout and explicit operand prefetch
+//     were all slower or equal), so the blocks are 8x4 and 4x4;
+//   - the bodies are staged once, in quads of 4 taps ([fft / 4][MT + 1]
+//     float4), so a tap quad of a row is one 16-byte load that a warp reads
+//     as a broadcast, and one 16-byte copy in; the odd stride keeps the
+//     staging stores (8 quads x 4 rows per warp) free of bank conflicts. The
+//     raw samples come by cp.async, the whole tile in flight at once (a CTA
+//     has too few threads to hide the loads' latency behind registers; 16
+//     plain loads a thread ahead of their stores measured slower), and each
+//     thread then normalizes its own samples in place (the source's map);
+//   - the table arrives in chunks of kKC taps by 16-byte cp.async, kStages
+//     chunks in flight, so the next chunk loads while this one is multiplied;
+//     a thread's float4 columns are (j * TN + tn) * 4, neighbouring threads
+//     on neighbouring 16 bytes, free of bank conflicts.
+// Each spectrum element stays one chain of fmaf over the taps 0 .. fft-1 in
+// order from 0 (a thread keeps its accumulators across the chunks), and the
+// epilogue keeps phy.demodulate's operations, so the bits do not depend on
+// the tiling. The thread grid follows the profile's column count: 448, 144
+// and 48 padded columns (standard, acoustic, narrowband) each get a tile
+// whose threads all own columns. The standard tile is 24 symbols high: the
+// 41 symbols of a 2048-byte QPSK chunk are two tiles (24 + 17, or with
+// kernel B's CE row 23 + 18), 128 CTAs for 64 streams on 132 SMs, where 32
+// rows would make the taller tile a third longer and 16 rows three tiles.
 
-// The demod's shared-memory regions, carved from one dynamic buffer of
-// demod_smem_floats(d) floats.
-struct DemodSmem {
-  float* ch;    // [2*na]: re | im
+template <int RM_, int RN_, int TM_, int TN_>
+struct Tile {
+  static constexpr int RM = RM_, RN = RN_, TM = TM_, TN = TN_;
+  static constexpr int kMT = RM * TM;        // symbols per tile
+  static constexpr int kCols = RN * TN;      // columns the thread grid covers
+  static constexpr int kThreads = TM * TN;
+  static constexpr int kLdb = kMT + 1;       // float4 between two tap quads of the staged bodies (odd)
+  static_assert(RM % 4 == 0 && RN % 4 == 0, "rows and columns of a thread are float4 groups");
+  static_assert(kThreads >= kMT, "the pilot phase takes one thread per symbol");
+  static_assert(kMT % 4 == 0 && kLdb % 2 == 1, "rows are staged four at a time, free of bank conflicts");
+  static_assert(kMT <= kStages * kKC, "the pilots' ratios of a tile fit in the table's stages");
+};
+using TileWide = Tile<8, 4, 3, 112>;   // 24 symbols x 448 columns (standard profile: 442)
+using TileMid = Tile<4, 4, 8, 36>;     // 32 symbols x 144 columns (acoustic: 142)
+using TileNarrow = Tile<4, 4, 8, 12>;  // 32 symbols x 48 columns (narrowband: 48)
+
+// The tile's shared-memory regions, carved from one dynamic buffer of
+// tile_smem_floats<Cfg>(d) floats; body and tab start on 16 bytes.
+struct TileSmem {
   float* hd;    // [3*nd]: re | im | den (0 = passthrough)
   float* hp;    // [3*npi]
-  float* body;  // [kGroup*fft]
-  float* spec;  // [kGroup*ncol]
-  float* phi;   // [kGroup]
+  float* phi;   // [kMT]
+  float* body;  // [fft / 4][kLdb] float4: 4 taps of a row; after the product the spectrum [kMT][ncol]
+  float* tab;   // [kStages][kKC][ncol_pad]
 };
 
-__device__ DemodSmem carve(const Demod& d, float* smem) {
-  DemodSmem s;
-  s.ch = smem;
-  s.hd = s.ch + 2 * d.n_active;
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+template <class Cfg>
+__host__ __device__ int tile_smem_floats(const Demod& d) {
+  return round4(3 * d.nd + 3 * d.npi + Cfg::kMT) + kFft * Cfg::kLdb + kStages * kKC * d.ncol_pad;
+}
+
+template <class Cfg>
+__device__ TileSmem carve(const Demod& d, float* smem) {
+  TileSmem s;
+  s.hd = smem;
   s.hp = s.hd + 3 * d.nd;
-  s.body = s.hp + 3 * d.npi;
-  s.spec = s.body + kGroup * d.fft;
-  s.phi = s.spec + kGroup * (2 * d.nd + 2 * d.npi);
+  s.phi = s.hp + 3 * d.npi;
+  s.body = smem + round4(3 * d.nd + 3 * d.npi + Cfg::kMT);
+  s.tab = s.body + kFft * Cfg::kLdb;
   return s;
 }
 
-// EQ tables at the data and pilot positions from the active-bin channel in
-// s.ch: H, and |H|^2 with 0 marking passthrough (|H|^2 <= 1e-10).
-__device__ void eq_tables(const Demod& d, const DemodSmem& s) {
-  const int nd = d.nd, npi = d.npi, na = d.n_active;
-  for (int j = threadIdx.x; j < nd + npi; j += blockDim.x) {
-    const bool data = j < nd;
-    const int pos = data ? d.data_pos[j] : d.pilot_pos[j - nd];
-    const float hr = s.ch[pos], hi = s.ch[na + pos];
-    const float mag = __fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi));
-    float* h = data ? s.hd : s.hp;
-    const int m = data ? nd : npi, i = data ? j : j - nd;
-    h[i] = hr;
-    h[m + i] = hi;
-    h[2 * m + i] = mag > 1e-10f ? mag : 0.0f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async4(void* dst_shared, const void* src_global) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src_global) : "memory");
 }
 
-// Data symbols k0 .. k0+g-1 (g <= kGroup), symbol k's CP at data_base +
-// k*sym of sample source ``src``: DFT at the data and pilot bins (one column
-// per thread, fft taps summed in order by FMA, the table read once for all
-// g bodies), pilot phase, ZF EQ, demap, int8 bits. ``bits`` is the row's
-// first bit; bits go out bin-major, MSB first within a bin (phy.demodulate's
-// order). Needs eq_tables first.
-template <class Src>
-__device__ void demod_group(const Src& src, int data_base, const Demod& d, int k0, int g,
-                            signed char* bits, const DemodSmem& s) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int fft = d.fft, nd = d.nd, npi = d.npi, bps = d.bps;
-  const int sym = fft + d.cp;
-  const int ncol = 2 * nd + 2 * npi;
-  for (int i = tid; i < kGroup * fft; i += nt) {
-    const int k = i / fft, n = i - k * fft;
-    s.body[i] = k < g ? src(data_base + (k0 + k) * sym + d.cp + n) : 0.0f;
+__device__ __forceinline__ void cp_async16(void* dst_shared, const void* src_global) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src_global) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Taps [c*kKC, (c+1)*kKC) of rx_demod (contiguous rows) into their stage of
+// s.tab; one commit group per call, empty past the last chunk.
+template <class Cfg>
+__device__ __forceinline__ void stage_table_chunk(const Demod& d, const TileSmem& s, int c) {
+  const int chunk = kKC * d.ncol_pad;
+  if (c * kKC < kFft) {
+    const float4* src = reinterpret_cast<const float4*>(d.rx_demod + (size_t)c * chunk);
+    float4* dst = reinterpret_cast<float4*>(s.tab + (c % kStages) * chunk);
+    for (int i = threadIdx.x; i < chunk / 4; i += Cfg::kThreads) cp_async16(dst + i, src + i);
   }
-  __syncthreads();
-  for (int c = tid; c < ncol; c += nt) {
-    const float* tab = c < 2 * nd ? d.rx_data + c : d.rx_pilot + (c - 2 * nd);
-    const int w = c < 2 * nd ? 2 * nd : 2 * npi;
-    float acc[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) acc[k] = 0.0f;
-    for (int n = 0; n < fft; ++n) {
-      const float t = tab[n * w];
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) acc[k] = fmaf(s.body[k * fft + n], t, acc[k]);
+  cp_async_commit();
+}
+
+// One entry of the EQ tables: H, and |H|^2 with 0 marking passthrough
+// (|H|^2 <= 1e-10), for data bin j (j < nd) or pilot bin j - nd.
+__device__ __forceinline__ void put_eq(const Demod& d, const TileSmem& s, int j, float hr, float hi) {
+  const bool data = j < d.nd;
+  const float mag = __fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi));
+  float* h = data ? s.hd : s.hp;
+  const int m = data ? d.nd : d.npi, i = data ? j : j - d.nd;
+  h[i] = hr;
+  h[m + i] = hi;
+  h[2 * m + i] = mag > 1e-10f ? mag : 0.0f;
+}
+
+// EQ tables from the stream's active-bin channel (ch_re, ch_im [n_active],
+// global). The caller synchronizes before reading them.
+__device__ void eq_tables(const Demod& d, const TileSmem& s, const float* ch_re, const float* ch_im) {
+  for (int j = threadIdx.x; j < d.nd + d.npi; j += blockDim.x) {
+    const int pos = j < d.nd ? d.data_pos[j] : d.pilot_pos[j - d.nd];
+    put_eq(d, s, j, ch_re[pos], ch_im[pos]);
+  }
+}
+
+// EQ tables from the spectrum of the CE body (``ce`` [ncol]: data re | im,
+// pilot re | im): H = Y * known sign (phy.estimate_channel). rx_demod's
+// columns are rx_active's at the data and pilot positions, so Y is bit for
+// bit channel_estimate's.
+__device__ void eq_tables_from_ce(const Demod& d, const TileSmem& s, const float* ce) {
+  const int nd = d.nd, npi = d.npi;
+  for (int j = threadIdx.x; j < nd + npi; j += blockDim.x) {
+    const bool data = j < nd;
+    const float known = d.ce_known[data ? d.data_pos[j] : d.pilot_pos[j - nd]];
+    const float* y = data ? ce + j : ce + 2 * nd + (j - nd);
+    put_eq(d, s, j, __fmul_rn(y[0], known), __fmul_rn(y[data ? nd : npi], known));
+  }
+}
+
+// One bin's bits, MSB first (phy.demodulate's order), as the widest stores
+// the bin's offset allows: ``out`` lies a multiple of bps bytes from a
+// 4-byte aligned base.
+__device__ __forceinline__ void store_bits(signed char* out, int idx, int bps) {
+  if (bps == 1) {
+    out[0] = (signed char)(idx & 1);
+  } else if ((bps & 3) == 0) {
+    for (int b = 0; b < bps; b += 4) {
+      const int v = idx >> (bps - 4 - b);
+      *reinterpret_cast<uint32_t*>(out + b) =
+          ((v >> 3) & 1) | (((v >> 2) & 1) << 8) | (((v >> 1) & 1) << 16) | ((v & 1) << 24);
     }
-    for (int k = 0; k < g; ++k) s.spec[k * ncol + c] = acc[k];
+  } else if ((bps & 1) == 0) {
+    for (int b = 0; b < bps; b += 2) {
+      const int v = idx >> (bps - 2 - b);
+      *reinterpret_cast<uint16_t*>(out + b) = (uint16_t)(((v >> 1) & 1) | ((v & 1) << 8));
+    }
+  } else {
+    for (int b = 0; b < bps; ++b) out[b] = (signed char)((idx >> (bps - 1 - b)) & 1);
   }
-  __syncthreads();
-  // pilot phase: mean of Im/Re over pilots with |Re| > 1e-6
-  if (tid < g) {
-    const float* sp = s.spec + tid * ncol + 2 * nd;
-    const float* hp = s.hp;
-    float sum = 0.0f;
-    int cnt = 0;
-    for (int j = 0; j < npi; ++j) {
-      float pr, pi;
-      equalize(sp[j], sp[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f,
-               pr, pi);
-      if (fabsf(pr) > 1e-6f) {
-        sum = __fadd_rn(sum, __fdiv_rn(pi, pr));
-        ++cnt;
+}
+
+// Data symbols k0 .. k0+g-1 (the ragged last tile of a row is masked, its
+// missing bodies are zeros) of one stream, symbol k's CP at data_base +
+// k*sym of sample source ``src`` (sample i is src.map(src.x[i]) where
+// src.has(i), else 0): DFT at the data and pilot bins, pilot phase, ZF EQ,
+// demap, int8 bits. The channel is the stream's (``ch_re``, ``ch_im``
+// [n_active], g <= Cfg::kMT) or, where CE, estimated by the tile itself: its
+// row 0 is then the CE body, the fft samples from ``ce_pos``, and g <=
+// Cfg::kMT - 1. ``bits`` is the row's first bit (4-byte aligned); bits go out
+// bin-major, MSB first within a bin.
+template <class Cfg, bool CE, class Src>
+__device__ void demod_tile(const Src& src, int data_base, int ce_pos, const Demod& d,
+                           const float* ch_re, const float* ch_im, int k0, int g,
+                           signed char* __restrict__ bits, float* smem) {
+  constexpr int RM = Cfg::RM, RN = Cfg::RN, MT = Cfg::kMT, LDB = Cfg::kLdb, NT = Cfg::kThreads;
+  constexpr int R0 = CE ? 1 : 0;  // the tile's row of data symbol k0
+  const int rows = g + R0;
+  const int tid = threadIdx.x, tn = tid % Cfg::TN, tm = tid / Cfg::TN;
+  const int nd = d.nd, npi = d.npi, bps = d.bps, ncol_pad = d.ncol_pad;
+  const int sym = kFft + d.cp;
+  const int ncol = 2 * nd + 2 * npi;
+  const TileSmem s = carve<Cfg>(d, smem);
+
+  // raw bodies, CP skipped, in quads of 4 taps: a warp takes 8 quads of 4
+  // rows at a time (128-byte runs of samples in, conflict-free 16-byte
+  // stores out, LDB being odd); quad i of the tile is taps 4*qd .. 4*qd+3 of
+  // row m. A quad that lies whole and 16-byte aligned in its row comes by one
+  // 16-byte cp.async (every row of a frame-aligned batch or of a region the
+  // decoder cut is so aligned; a receive window's rows start anywhere), any
+  // other by 4-byte copies, which move only about a sample a cycle per SM.
+  const int first = data_base + k0 * sym + d.cp;
+  auto quad = [](int i) { return ((i >> 5) % (kFft / 32)) * 8 + (i & 7); };
+  auto row = [](int i) { return ((i >> 5) / (kFft / 32)) * 4 + ((i >> 3) & 3); };
+  auto sample = [=](int m, int qd) { return (CE && m == 0 ? ce_pos : first + (m - R0) * sym) + 4 * qd; };
+  for (int i = tid; i < MT * (kFft / 4); i += NT) {
+    const int qd = quad(i), m = row(i), pos = sample(m, qd);
+    float* dst = s.body + (qd * LDB + m) * 4;
+    const bool live = m < rows;
+    if (live && src.has(pos) && src.has(pos + 3) && (reinterpret_cast<uintptr_t>(src.x + pos) & 15) == 0) {
+      cp_async16(dst, src.x + pos);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (live && src.has(pos + e))
+          cp_async4(dst + e, src.x + pos + e);
+        else
+          dst[e] = 0.0f;
       }
     }
+  }
+  cp_async_commit();
+  for (int c = 0; c < kStages - 1; ++c) stage_table_chunk<Cfg>(d, s, c);
+  if (!CE) eq_tables(d, s, ch_re, ch_im);
+  cp_async_wait<kStages - 1>();  // this thread's samples have landed: normalize them in place
+  for (int i = tid; i < MT * (kFft / 4); i += NT) {
+    const int qd = quad(i), m = row(i), pos = sample(m, qd);
+    if (m >= rows) continue;
+    float4* at = reinterpret_cast<float4*>(s.body + (qd * LDB + m) * 4);
+    float4 v = *at;
+    if (src.has(pos)) v.x = src.map(v.x);
+    if (src.has(pos + 1)) v.y = src.map(v.y);
+    if (src.has(pos + 2)) v.z = src.map(v.z);
+    if (src.has(pos + 3)) v.w = src.map(v.w);
+    *at = v;
+  }
+
+  int col[RN / 4];  // the thread's float4 column groups, clamped into the table
+#pragma unroll
+  for (int j = 0; j < RN / 4; ++j) col[j] = min((j * Cfg::TN + tn) * 4, ncol_pad - 4);
+  float acc[RM][RN];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int q = 0; q < RN; ++q) acc[r][q] = 0.0f;
+
+  for (int c = 0; c * kKC < kFft; ++c) {
+    cp_async_wait<kStages - 2>();  // this thread's share of chunk c has landed
+    __syncthreads();               // everyone's has, chunk c-1's stage is free; at c = 0 the bodies and EQ tables are whole
+    stage_table_chunk<Cfg>(d, s, c + kStages - 1);
+    const float* tab = s.tab + (c % kStages) * kKC * ncol_pad;
+    const float4* body = reinterpret_cast<const float4*>(s.body) + c * (kKC / 4) * LDB + tm * RM;
+#pragma unroll
+    for (int kq = 0; kq < kKC / 4; ++kq) {
+      float4 x[RM];  // taps 4*kq .. 4*kq+3 of the thread's rows
+#pragma unroll
+      for (int r = 0; r < RM; ++r) x[r] = body[kq * LDB + r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float t[RN];
+#pragma unroll
+        for (int j = 0; j < RN / 4; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(tab + (4 * kq + e) * ncol_pad + col[j]);
+          t[4 * j] = v.x, t[4 * j + 1] = v.y, t[4 * j + 2] = v.z, t[4 * j + 3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const float xr = e == 0 ? x[r].x : e == 1 ? x[r].y : e == 2 ? x[r].z : x[r].w;
+#pragma unroll
+          for (int q = 0; q < RN; ++q) acc[r][q] = fmaf(xr, t[q], acc[r][q]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the bodies are read; the spectrum takes their place
+  float* spec = s.body;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int m = tm * RM + r;
+#pragma unroll
+    for (int q = 0; q < RN; ++q) {
+      const int cc = ((q / 4) * Cfg::TN + tn) * 4 + (q & 3);
+      if (m < rows && cc < ncol) spec[m * ncol + cc] = acc[r][q];
+    }
+  }
+  __syncthreads();
+  if (CE) {
+    eq_tables_from_ce(d, s, spec);
+    __syncthreads();
+  }
+  spec += R0 * ncol;  // data symbol k0's spectrum
+  // pilot phase: mean of Im/Re over pilots with |Re| > 1e-6. Every pilot's
+  // ratio in parallel (the table's stages are free now), then one thread per
+  // symbol adds them in pilot order.
+  float* __restrict__ ratio = s.tab;          // [g][npi], 0 where unusable
+  float* __restrict__ usable = s.tab + MT * npi;  // [g][npi], 1 or 0
+  const float* __restrict__ hp = s.hp;
+  for (int i = tid; i < g * npi; i += NT) {
+    const int k = i / npi, j = i - k * npi;
+    const float* sp = spec + k * ncol + 2 * nd;
+    float pr, pi;
+    equalize(sp[j], sp[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f, pr, pi);
+    const bool ok = fabsf(pr) > 1e-6f;
+    ratio[i] = ok ? __fdiv_rn(pi, pr) : 0.0f;
+    usable[i] = ok ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  if (tid < g) {
+    float sum = 0.0f;
+    int cnt = 0;
+    for (int j = 0; j < npi; ++j)
+      if (usable[tid * npi + j] != 0.0f) {
+        sum = __fadd_rn(sum, ratio[tid * npi + j]);
+        ++cnt;
+      }
     s.phi[tid] = cnt > 0 ? __fdiv_rn(sum, (float)cnt) : 0.0f;
   }
   __syncthreads();
-  const float* hd = s.hd;
-  for (int i = tid; i < g * nd; i += nt) {
+  const float* __restrict__ hd = s.hd;
+#pragma unroll 4
+  for (int i = tid; i < g * nd; i += NT) {
     const int k = i / nd, j = i - k * nd;
-    const float* sp = s.spec + k * ncol;
+    const float* __restrict__ sp = spec + k * ncol;
     float dr, di;
     equalize(sp[j], sp[nd + j], hd[j], hd[nd + j], hd[2 * nd + j], hd[2 * nd + j] > 0.0f, dr, di);
     const float p = s.phi[k];
     const float cr = __fadd_rn(dr, __fmul_rn(di, p));
     const float ci = __fsub_rn(di, __fmul_rn(dr, p));
-    const int idx = demap_index(cr, ci, bps, d.qam_scale);
-    signed char* out = bits + ((size_t)(k0 + k) * nd + j) * bps;
-    for (int b = 0; b < bps; ++b) out[b] = (signed char)((idx >> (bps - 1 - b)) & 1);
+    store_bits(bits + ((size_t)(k0 + k) * nd + j) * bps, demap_index(cr, ci, bps, d.qam_scale), bps);
   }
-  __syncthreads();
 }
 
 // CE: H = DFT(body) * known sign (phy.estimate_channel) of the fft samples
 // of ``src`` from ``pos``, staged in ``body`` (fft floats of shared memory).
-// H goes to ``ch`` ([2*n_active] re | im, shared) or, where ``ch`` is null,
-// to ``ch_re_out`` and ``ch_im_out`` ([n_active] each, global).
+// H goes to ``ch_re_out`` and ``ch_im_out`` ([n_active] each, global).
 template <class Src>
-__device__ void channel_estimate(const Src& src, int pos, const Demod& d, float* body, float* ch,
+__device__ void channel_estimate(const Src& src, int pos, const Demod& d, float* body,
                                  float* ch_re_out, float* ch_im_out) {
   const int tid = threadIdx.x, nt = blockDim.x, na = d.n_active;
-  for (int n = tid; n < d.fft; n += nt) body[n] = src(pos + n);
+  for (int n = tid; n < kFft; n += nt) body[n] = src(pos + n);
   __syncthreads();
   for (int c = tid; c < 2 * na; c += nt) {
     float acc = 0.0f;
-    for (int n = 0; n < d.fft; ++n) acc = fmaf(body[n], d.rx_active[n * 2 * na + c], acc);
+#pragma unroll 64
+    for (int n = 0; n < kFft; ++n) acc = fmaf(body[n], d.rx_active[n * 2 * na + c], acc);
     const float h = __fmul_rn(acc, d.ce_known[c < na ? c : c - na]);
-    if (ch)
-      ch[c] = h;
-    else if (c < na)
+    if (c < na)
       ch_re_out[c] = h;
     else
       ch_im_out[c - na] = h;
   }
-  __syncthreads();
-}
-
-// Channel estimate at frame offset 2*sym + cp, then n_sym data symbols at
-// 3*sym + cp + k*sym, from sample source ``src`` (reads 0 out of range).
-template <class Src>
-__device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
-                            signed char* bits, float* smem) {
-  const int sym = d.fft + d.cp;
-  const DemodSmem s = carve(d, smem);
-  channel_estimate(src, base + 2 * sym + d.cp, d, s.body, s.ch, nullptr, nullptr);
-  eq_tables(d, s);
-  for (int k0 = 0; k0 < n_sym; k0 += kGroup)
-    demod_group(src, base + 3 * sym, d, k0, min(kGroup, n_sym - k0), bits, s);
 }
 
 // ---- kernel A: full receive, a pipeline of six launches ----
@@ -287,7 +498,7 @@ __device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
 // the window, the refine region, the frame's symbols) is small or stays in L2.
 //
 // The design makes both passes over the window coalesced streams gridded
-// over (tiles, streams), and the demod gridded over (symbol groups,
+// over (tiles, streams), and the demod gridded over (symbol tiles,
 // streams), so even one stream fills the card; each stage stays exact:
 //   1. pre_stats (tiles of kRowsA rows of kSumLanes, B, lane quarters): per
 //      lane a perfect pairwise subtree over the tile's rows, plus max(x) and
@@ -305,8 +516,8 @@ __device__ void demod_frame(const Src& src, int base, const Demod& d, int n_sym,
 //      first drop equals sync.first_peak_commit's.
 //   5. refine_ce (B): best and its first index up to the first drop (full
 //      tiles' maxima plus one partial tile), the xcorr refine, the CE.
-//   6. demod (kGroup-symbol groups, B): demod_group on the normalized
-//      samples at start + 3*sym, EQ tables built per CTA from the CE.
+//   6. demod (symbol tiles, B): demod_tile on the normalized samples at
+//      start + 3*sym, EQ tables built per CTA from the CE.
 // The normalized sample is recomputed from x wherever it is read, so the
 // [B, T] window is never copied.
 
@@ -320,13 +531,14 @@ constexpr int kScanBlocksE = kScanTile + 2 * kHalfBlocks - 1;  // energy blocks 
 constexpr int kScanBlocksP = kScanTile + kHalfBlocks - 1;      // product blocks per scan tile
 constexpr int kScanSamples = kStride * kScanBlocksE;           // samples per scan tile, halo included
 
+// A sample source: sample i of a row is map(x[i]) where has(i), else 0.
 struct PreSrc {
   const float* x;
   int T, nv;
   float mean, scale;
-  __device__ float operator()(int i) const {
-    return (i >= 0 && i < nv && i < T) ? __fmul_rn(__fsub_rn(x[i], mean), scale) : 0.0f;
-  }
+  __device__ bool has(int i) const { return i >= 0 && i < nv && i < T; }
+  __device__ float map(float v) const { return __fmul_rn(__fsub_rn(v, mean), scale); }
+  __device__ float operator()(int i) const { return has(i) ? map(x[i]) : 0.0f; }
 };
 
 __device__ PreSrc pre_src(const float* signals, const int* n_valid, const float* stats, int T, int b) {
@@ -605,69 +817,95 @@ refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_va
     fine_out[b] = fm;
     detected_out[b] = coarse >= 0 && fm >= kXcorrThreshold;
   }
-  channel_estimate(pre, start + 2 * sym + d.cp, d, body, nullptr, ch_re_out + (size_t)b * na,
+  channel_estimate(pre, start + 2 * sym + d.cp, d, body, ch_re_out + (size_t)b * na,
                    ch_im_out + (size_t)b * na);
 }
 
-// EQ tables of stream b from its channel (re, im) [B, n_active] in global memory.
-__device__ void load_channel(const Demod& d, const DemodSmem& s, const float* ch_re,
-                             const float* ch_im, int b) {
-  const int na = d.n_active;
-  for (int a = threadIdx.x; a < na; a += blockDim.x) {
-    s.ch[a] = ch_re[(size_t)b * na + a];
-    s.ch[na + a] = ch_im[(size_t)b * na + a];
-  }
-  __syncthreads();
-  eq_tables(d, s);
-}
-
-// 6. kGroup data symbols of stream b at start + 3*sym
-__global__ void __launch_bounds__(kThreadsS)
+// 6. one tile of data symbols of stream b at start + 3*sym
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads)
 receive_demod_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
                      const float* __restrict__ stats, const int* __restrict__ start,
                      const float* __restrict__ ch_re, const float* __restrict__ ch_im, Demod d,
                      int max_syms, signed char* bits_out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y, k0 = blockIdx.x * kGroup;
-  const DemodSmem s = carve(d, smem);
-  load_channel(d, s, ch_re, ch_im, b);
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, k0 = blockIdx.x * Cfg::kMT;
   const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
-  demod_group(pre, start[b] + 3 * (d.fft + d.cp), d, k0, min(kGroup, max_syms - k0),
-              bits_out + (size_t)b * max_syms * d.nd * d.bps, s);
+  demod_tile<Cfg, false>(pre, start[b] + 3 * (kFft + d.cp), 0, d, ch_re + (size_t)b * d.n_active,
+                         ch_im + (size_t)b * d.n_active, k0, min(Cfg::kMT, max_syms - k0),
+                         bits_out + (size_t)b * max_syms * d.nd * d.bps, smem);
 }
 
-// ---- kernel B: frame-aligned chunk demod ----
+// ---- kernel B: frame-aligned chunk demod, a pipeline of two launches ----
 //
 // Replaces audio_modem_tpu/kernels/receive.py::_chunk_kernel (entry
-// decode_chunks_fused). Per frame (one CTA): max |x| over the row, samples
-// divided by it (passthrough when <= 1e-6), CE at 2*sym + cp, n_sym symbols.
-// What bounds it on the H100: the frame is read twice (max, then the CE and
-// data symbols) and the DFT is ~0.45 MFLOP per symbol from shared memory, so
-// at 64 frames it is latency-bound on 64 CTAs; batching more frames per launch
-// is what fills the card.
+// decode_chunks_fused). Per frame: max |x| over the row, samples divided by
+// it (passthrough when <= 1e-6), CE at 2*sym + cp, n_sym symbols.
+// What bounds it on the H100: the frame is read twice (the peak must be
+// known before any sample is scaled; the second read hits L2 where the
+// batch fits it) and the demod is the FMA-bound tile above. A frame is too little work for an
+// SM and 64 frames too few CTAs for 132 SMs, so both launches are gridded
+// inside the frame as well:
+//   1. peak (chunks of kPeakChunk samples, B): 16-byte loads, block max,
+//      atomicMax on the bit pattern (non-negative floats order as unsigned
+//      integers; max is exact in any order) into a slot the entry zeroes.
+//   2. demod (symbol tiles, B): demod_tile on the scaled samples at 3*sym.
+//      The CE rides in the tile: its row 0 is the scaled CE body, one more
+//      row of the same product (a tile of 24 rows holds 23 symbols, so the
+//      41 symbols of a 2048-byte QPSK chunk still take two tiles), and the
+//      EQ tables come from that row's spectrum. A CE launch of its own, one
+//      fmaf chain per thread against rx_active from L2, is bound by the
+//      loads' latency and took over a third of the demod's time.
 
 struct ScaledSrc {
   const float* x;
   int T;
   float mx;
   bool big;
-  __device__ float operator()(int i) const {
-    if (i < 0 || i >= T) return 0.0f;
-    return big ? __fdiv_rn(x[i], mx) : x[i];
-  }
+  __device__ bool has(int i) const { return i >= 0 && i < T; }
+  __device__ float map(float v) const { return big ? __fdiv_rn(v, mx) : v; }
 };
 
-__global__ void __launch_bounds__(kThreadsB)
-chunk_kernel(const float* __restrict__ frames, int T, Demod d, int n_sym, signed char* bits_out) {
-  extern __shared__ float smem[];
+__device__ ScaledSrc scaled_src(const float* frames, int T, const unsigned* peak, int b) {
+  const float mx = __uint_as_float(peak[b]);
+  return ScaledSrc{frames + (size_t)b * T, T, mx, mx > 1e-6f};
+}
+
+// 1. max |x| of samples [chunk * kPeakChunk, (chunk + 1) * kPeakChunk) of frame b
+__global__ void __launch_bounds__(kThreadsPeak)
+chunk_peak_kernel(const float* __restrict__ frames, int T, unsigned* __restrict__ peak) {
   __shared__ float redf[33];
-  const int b = blockIdx.x;
-  const float* x = frames + (size_t)b * T;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int i0 = blockIdx.x * kPeakChunk;
+  const float* x = frames + (size_t)b * T + i0;
+  const int n = min(kPeakChunk, T - i0);
+  // scalars up to the first 16-byte boundary, float4 from there, scalars at the end
+  const int head = min(n, (int)((4 - ((reinterpret_cast<uintptr_t>(x) >> 2) & 3)) & 3));
+  const int n4 = (n - head) / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x + head);
   float mx = 0.0f;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) mx = fmaxf(mx, fabsf(x[i]));
+  for (int i = tid; i < n4; i += kThreadsPeak) {
+    const float4 v = x4[i];
+    mx = fmaxf(fmaxf(mx, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+  }
+  if (tid < head) mx = fmaxf(mx, fabsf(x[tid]));
+  if (head + 4 * n4 + tid < n) mx = fmaxf(mx, fabsf(x[head + 4 * n4 + tid]));
   mx = block_max(mx, redf);
-  const ScaledSrc src{x, T, mx, mx > 1e-6f};
-  demod_frame(src, 0, d, n_sym, bits_out + (size_t)b * n_sym * d.nd * d.bps, smem);
+  if (tid == 0) atomicMax(peak + b, __float_as_uint(mx));
+}
+
+// 2. one tile of frame b: the CE body at 2*sym + cp in row 0, then up to
+// kMT - 1 data symbols at 3*sym
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads)
+chunk_demod_kernel(const float* __restrict__ frames, int T, const unsigned* __restrict__ peak, Demod d,
+                   int n_sym, signed char* bits_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, k0 = blockIdx.x * (Cfg::kMT - 1), sym = kFft + d.cp;
+  const ScaledSrc src = scaled_src(frames, T, peak, b);
+  demod_tile<Cfg, true>(src, 3 * sym, 2 * sym + d.cp, d, nullptr, nullptr, k0,
+                        min(Cfg::kMT - 1, n_sym - k0), bits_out + (size_t)b * n_sym * d.nd * d.bps,
+                        smem);
 }
 
 // ---- streaming demod: a data region with a known channel ----
@@ -677,35 +915,32 @@ chunk_kernel(const float* __restrict__ frames, int T, Demod d, int n_sym, signed
 // decode_long_fused). Row b of ``data`` (row stride ld, L samples) starts at
 // the CP of its first data symbol; each sample is multiplied by scale[b].
 // The channel comes in the active-bin layout (ch_re, ch_im [B, n_active]).
-// One CTA demodulates kGroup symbols of one stream: it builds that stream's
-// EQ table, then runs demod_group. The TPU kernels' flat/pair split, 128-lane
-// sections and 16-bit word packing are Mosaic layout and have no part here.
-// What bounds it on the H100: the DFT reads the [fft, 2*nd + 2*npi] tables
-// once per kGroup symbols (from L2; 290 KB for the acoustic profile, 905 KB
-// for the standard one), so L2 bandwidth and FMA issue, not device memory
-// (each sample is read once). The grid is over symbols as well as streams,
-// so a single stream (the decoder's B = 1) still spreads over every SM.
+// One CTA demodulates one tile of symbols of one stream: it builds that
+// stream's EQ table, then runs demod_tile. The TPU kernels' flat/pair split,
+// 128-lane sections and 16-bit word packing are Mosaic layout and have no
+// part here. What bounds it on the H100: the tile's FMA rate (see the
+// demod tile), not device memory: each sample is read once. The grid is over symbol tiles as well as streams, so a
+// single stream (the decoder's B = 1) still spreads over every SM.
 
 struct StreamSrc {
   const float* x;
   int L;
   float scale;
-  __device__ float operator()(int i) const {
-    return (i >= 0 && i < L) ? __fmul_rn(x[i], scale) : 0.0f;
-  }
+  __device__ bool has(int i) const { return i >= 0 && i < L; }
+  __device__ float map(float v) const { return __fmul_rn(v, scale); }
 };
 
-__global__ void __launch_bounds__(kThreadsS)
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads)
 stream_demod_kernel(const float* __restrict__ data, long long ld, int L,
                     const float* __restrict__ ch_re, const float* __restrict__ ch_im,
                     const float* __restrict__ scale, Demod d, int n_sym, signed char* bits_out) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y, k0 = blockIdx.x * kGroup;
-  const DemodSmem s = carve(d, smem);
-  load_channel(d, s, ch_re, ch_im, b);
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, k0 = blockIdx.x * Cfg::kMT;
   const StreamSrc src{data + (size_t)b * ld, L, scale[b]};
-  demod_group(src, 0, d, k0, min(kGroup, n_sym - k0),
-              bits_out + (size_t)b * n_sym * d.nd * d.bps, s);
+  demod_tile<Cfg, false>(src, 0, 0, d, ch_re + (size_t)b * d.n_active, ch_im + (size_t)b * d.n_active,
+                         k0, min(Cfg::kMT, n_sym - k0), bits_out + (size_t)b * n_sym * d.nd * d.bps,
+                         smem);
 }
 
 // Kernel A's tiling of a T-sample row with n_pos scan positions: rows *
@@ -721,12 +956,42 @@ TilingA tiling_a(int T, int n_pos) {
   return TilingA{rows, (int)(m / rows), (n_pos + kScanTile - 1) / kScanTile};
 }
 
-Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_data,
-                 const float* rx_pilot, const int* data_pos, const int* pilot_pos, int fft,
-                 int cp, int n_active, int nd, int npi, float qam_scale, int bps) {
-  return Demod{rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos,
-               fft,       cp,       n_active, nd,     npi,      bps,       qam_scale};
+// The demod's description, or fft = 0 where the tile cannot take it: the
+// DFT size is kFft, the table's rows must be whole 16-byte pieces that hold
+// every column, the spectrum must fit over the staged bodies, and a row of
+// bits must start on 4 bytes (store_bits).
+Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_demod,
+                 const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active, int nd,
+                 int npi, int ncol_pad, float qam_scale, int bps, const signed char* bits) {
+  const int ncol = 2 * nd + 2 * npi;
+  const bool ok = fft == kFft && ncol >= 1 && ncol <= fft && ncol_pad % 4 == 0 && ncol_pad >= ncol &&
+                  ncol_pad <= TileWide::kCols && bps >= 1 &&
+                  reinterpret_cast<uintptr_t>(rx_demod) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(bits) % 4 == 0;
+  return Demod{rx_active, ce_known, rx_demod, data_pos, pilot_pos, ok ? fft : 0,
+               cp,        n_active, nd,       npi,      ncol_pad,  bps,          qam_scale};
 }
+
+// Launches ``kernel`` (one of the three demod kernels, at tile Cfg) over
+// (tiles of n_sym symbols, B) with the tile's dynamic shared memory;
+// ``ce_rows`` rows of every tile are taken by a CE body (0 or 1).
+template <class Cfg, class... Params, class... Args>
+cudaError_t launch_tiles(void (*kernel)(Params...), const Demod& d, int ce_rows, int n_sym, int B,
+                         cudaStream_t stream, Args... args) {
+  const int per_tile = Cfg::kMT - ce_rows;
+  const size_t smem = sizeof(float) * tile_smem_floats<Cfg>(d);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n_sym + per_tile - 1) / per_tile, B), Cfg::kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The narrowest tile that covers the profile's columns, chosen on the host.
+#define AMTPU_LAUNCH_TILES(kernel, d, ...)                                              \
+  ((d).ncol_pad <= TileNarrow::kCols ? launch_tiles<TileNarrow>(kernel<TileNarrow>, d, __VA_ARGS__) \
+   : (d).ncol_pad <= TileMid::kCols  ? launch_tiles<TileMid>(kernel<TileMid>, d, __VA_ARGS__)       \
+                                     : launch_tiles<TileWide>(kernel<TileWide>, d, __VA_ARGS__))
 
 }  // namespace
 
@@ -749,13 +1014,15 @@ long long amtpu_decode_fused_scratch_floats(int B, int T, int n_pos) {
 // position count of sync.scan_metric at stride kStride.
 int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_pos, int B, int T,
                        const float* pre1, float t_energy, const float* rx_active,
-                       const float* ce_known, const float* rx_data, const float* rx_pilot,
-                       const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active,
-                       int nd, int npi, float qam_scale, int bps, int max_syms, int n_pos,
+                       const float* ce_known, const float* rx_demod, const int* data_pos,
+                       const int* pilot_pos, int fft, int cp, int n_active, int nd, int npi,
+                       int ncol_pad, float qam_scale, int bps, int max_syms, int n_pos,
                        float* scratch, int* start, int* coarse, float* cmetric, float* fine,
                        unsigned char* detected, signed char* bits, float* ch_re, float* ch_im,
                        cudaStream_t stream) {
-  if (T < 1 || n_pos < 1 || fft != 2 * kHalfBlocks * kStride || cp > 256 || fft + cp > kMaxSym ||
+  const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active,
+                             nd, npi, ncol_pad, qam_scale, bps, bits);
+  if (T < 1 || n_pos < 1 || d.fft == 0 || cp > 256 || fft + cp > kMaxSym ||
       B < 1 || max_syms < 1)
     return (int)cudaErrorInvalidValue;
   const TilingA g = tiling_a(T, n_pos);
@@ -766,12 +1033,7 @@ int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_
   float* metric = stats + (size_t)B * 2;
   float* tile_max = metric + (size_t)B * n_pos;
   int* first_drop = reinterpret_cast<int*>(tile_max + (size_t)B * n_scan_tiles);
-  const Demod d = make_demod(rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos, fft, cp,
-                             n_active, nd, npi, qam_scale, bps);
-  const size_t smem = sizeof(float) * demod_smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(receive_demod_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   pre_stats_kernel<<<dim3(n_rows_tiles, B, kLaneSplit), kThreadsPre, 0, stream>>>(signals, n_valid, T,
                                                                                   rows, part, tile_mm);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -787,43 +1049,44 @@ int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_
                                                 n_scan_tiles, metric, tile_max, first_drop, start,
                                                 coarse, cmetric, fine, detected, ch_re, ch_im);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 grid((max_syms + kGroup - 1) / kGroup, B);
-  receive_demod_kernel<<<grid, kThreadsS, smem, stream>>>(signals, n_valid, T, stats, start, ch_re,
-                                                          ch_im, d, max_syms, bits);
-  return (int)cudaGetLastError();
+  return (int)AMTPU_LAUNCH_TILES(receive_demod_kernel, d, 0, max_syms, B, stream, signals, n_valid, T,
+                                 stats, start, ch_re, ch_im, d, max_syms, bits);
 }
 
+// Floats of kernel B's scratch for B frames: the peak's bit pattern [B].
+long long amtpu_decode_chunks_fused_scratch_floats(int B) { return B; }
+
+// Kernel B's two launches on ``stream``. ``scratch`` holds
+// amtpu_decode_chunks_fused_scratch_floats(B) floats.
 int amtpu_decode_chunks_fused(const float* frames, int B, int T, const float* rx_active,
-                              const float* ce_known, const float* rx_data, const float* rx_pilot,
-                              const int* data_pos, const int* pilot_pos, int fft, int cp,
-                              int n_active, int nd, int npi, float qam_scale, int bps, int n_sym,
+                              const float* ce_known, const float* rx_demod, const int* data_pos,
+                              const int* pilot_pos, int fft, int cp, int n_active, int nd, int npi,
+                              int ncol_pad, float qam_scale, int bps, int n_sym, float* scratch,
                               signed char* bits, cudaStream_t stream) {
-  const Demod d = make_demod(rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos, fft, cp,
-                             n_active, nd, npi, qam_scale, bps);
-  const size_t smem = sizeof(float) * demod_smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active,
+                             nd, npi, ncol_pad, qam_scale, bps, bits);
+  if (d.fft == 0 || B < 1 || T < 1 || n_sym < 1) return (int)cudaErrorInvalidValue;
+  unsigned* peak = reinterpret_cast<unsigned*>(scratch);
+  cudaError_t err = cudaMemsetAsync(peak, 0, sizeof(unsigned) * B, stream);
   if (err != cudaSuccess) return (int)err;
-  chunk_kernel<<<B, kThreadsB, smem, stream>>>(frames, T, d, n_sym, bits);
-  return (int)cudaGetLastError();
+  chunk_peak_kernel<<<dim3((T + kPeakChunk - 1) / kPeakChunk, B), kThreadsPeak, 0, stream>>>(frames, T,
+                                                                                            peak);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)AMTPU_LAUNCH_TILES(chunk_demod_kernel, d, 1, n_sym, B, stream, frames, T, peak, d, n_sym,
+                                 bits);
 }
 
 int amtpu_stream_demod(const float* data, int B, long long ld, int L, const float* ch_re,
                        const float* ch_im, const float* scale, const float* rx_active,
-                       const float* ce_known, const float* rx_data, const float* rx_pilot,
-                       const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active,
-                       int nd, int npi, float qam_scale, int bps, int n_sym, signed char* bits,
+                       const float* ce_known, const float* rx_demod, const int* data_pos,
+                       const int* pilot_pos, int fft, int cp, int n_active, int nd, int npi,
+                       int ncol_pad, float qam_scale, int bps, int n_sym, signed char* bits,
                        cudaStream_t stream) {
-  const Demod d = make_demod(rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos, fft, cp,
-                             n_active, nd, npi, qam_scale, bps);
-  const size_t smem = sizeof(float) * demod_smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(stream_demod_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_sym + kGroup - 1) / kGroup, B);
-  stream_demod_kernel<<<grid, kThreadsS, smem, stream>>>(data, ld, L, ch_re, ch_im, scale, d, n_sym,
-                                                         bits);
-  return (int)cudaGetLastError();
+  const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active,
+                             nd, npi, ncol_pad, qam_scale, bps, bits);
+  if (d.fft == 0 || B < 1 || n_sym < 1) return (int)cudaErrorInvalidValue;
+  return (int)AMTPU_LAUNCH_TILES(stream_demod_kernel, d, 0, n_sym, B, stream, data, ld, L, ch_re, ch_im,
+                                 scale, d, n_sym, bits);
 }
 
 }  // extern "C"

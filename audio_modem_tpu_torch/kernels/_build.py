@@ -38,8 +38,8 @@ _SIGNATURES = {
     "amtpu_decode_fused": [
         _P, _P, _P, _I, _I,          # signals, n_valid, min_pos, B, T
         _P, _F,                      # pre1, t_energy
-        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
-        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
         _I, _I, _I,                  # bps, max_syms, n_pos
         _P,                          # scratch
         _P, _P, _P, _P, _P,          # out: start, coarse, cmetric, fine, detected
@@ -48,17 +48,18 @@ _SIGNATURES = {
     ],
     "amtpu_decode_chunks_fused": [
         _P, _I, _I,                  # frames, B, T
-        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
-        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
         _I, _I,                      # bps, n_sym
+        _P,                          # scratch
         _P,                          # out: bits
         _P,                          # stream
     ],
     "amtpu_stream_demod": [
         _P, _I, ctypes.c_longlong, _I,  # data, B, row stride, L
         _P, _P, _P,                  # ch_re, ch_im, scale
-        _P, _P, _P, _P, _P, _P,      # rx_active, ce_known, rx_data, rx_pilot, data_pos, pilot_pos
-        _I, _I, _I, _I, _I, _F,      # fft, cp, n_active, nd, npi, qam_scale
+        _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
         _I, _I,                      # bps, n_sym
         _P,                          # out: bits
         _P,                          # stream
@@ -66,7 +67,10 @@ _SIGNATURES = {
 }
 
 # C functions that return a size rather than a CUDA error code.
-_SIZES = {"amtpu_decode_fused_scratch_floats": [_I, _I, _I]}  # B, T, n_pos
+_SIZES = {
+    "amtpu_decode_fused_scratch_floats": [_I, _I, _I],   # B, T, n_pos
+    "amtpu_decode_chunks_fused_scratch_floats": [_I],    # B
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -4,12 +4,15 @@ audio_modem_tpu/kernels/receive.py).
 ``decode_fused`` (kernel A, csrc/receive.cu ``amtpu_decode_fused``) runs
 the whole receive: preprocess, strided Schmidl-Cox scan with first-peak
 commit, xcorr refine, CE, demod, as six launches gridded over (row tiles,
-scan tiles or symbol groups, streams). ``decode_chunks_fused``
-(kernel B, ``chunk_kernel``) demodulates frame-aligned chunk frames.
-``stream_demod`` (``stream_demod_kernel``) demodulates a data region whose
-channel and amplitude scale are already known, gridded over symbol groups
-as well as streams; ``decode_chunks_fused_stream`` and ``decode_long_fused``
-put a plain PyTorch prologue in front of it. Each wrapper checks its inputs,
+scan tiles or symbol tiles, streams). ``decode_chunks_fused``
+(kernel B, ``amtpu_decode_chunks_fused``) demodulates frame-aligned chunk
+frames as two launches (peak; CE and demod) gridded over (chunks of the
+frame or symbol tiles, frames). ``stream_demod`` (``stream_demod_kernel``)
+demodulates a data region whose channel and amplitude scale are already
+known, gridded over symbol tiles as well as streams;
+``decode_chunks_fused_stream`` and ``decode_long_fused`` put a plain
+PyTorch prologue in front of it. All three end in one tiled,
+register-blocked demod (``demod_tile``) against ``Tables.rx_demod``. Each wrapper checks its inputs,
 allocates outputs and scratch with ``torch.empty`` and launches on the
 current stream; on CPU tensors it runs the plain version beside it
 (``*_reference``), built from sync and phy.
@@ -23,13 +26,15 @@ every consumer truncates.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from audio_modem_tpu_torch import phy, sync
 from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
 from audio_modem_tpu_torch.ops.constellations import BPS, bits_per_symbol, qam_scale
-from audio_modem_tpu_torch.tables import Tables, profile_tables
+from audio_modem_tpu_torch.tables import profile_tables
 
 
 def _front_end(
@@ -95,15 +100,19 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None
         )
 
 
-def _table_args(tabs: Tables, mode: ModemMode) -> list:
+@lru_cache(maxsize=None)
+def _table_args(mode: ModemMode, device: torch.device) -> tuple:
+    """The C entries' table and profile arguments for ``mode`` on ``device``
+    (the tables live as long as the process: ``profile_tables`` caches them)."""
+    tabs = profile_tables(mode, device)
     p = mode.profile
     name = mode.constellation
-    return [
-        tabs.rx_active.data_ptr(), tabs.ce_known.data_ptr(), tabs.rx_data.data_ptr(),
-        tabs.rx_pilot.data_ptr(), tabs.data_pos.data_ptr(), tabs.pilot_pos.data_ptr(),
-        p.fft_size, p.cp_len, p.num_active_subs, p.num_data_subs, len(p.pilots),
+    return (
+        tabs.rx_active.data_ptr(), tabs.ce_known.data_ptr(), tabs.rx_demod.data_ptr(),
+        tabs.data_pos.data_ptr(), tabs.pilot_pos.data_ptr(),
+        p.fft_size, p.cp_len, p.num_active_subs, p.num_data_subs, len(p.pilots), tabs.rx_demod.shape[1],
         qam_scale(name) if BPS[name] > 2 else 1.0, BPS[name],
-    ]
+    )
 
 
 def _scan_positions(t: int, mode: ModemMode) -> int:
@@ -155,7 +164,7 @@ def decode_fused(
     code = lib.amtpu_decode_fused(
         signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
         tabs.pre1.data_ptr(), tabs.t_energy,
-        *_table_args(tabs, mode),
+        *_table_args(mode, dev),
         max_syms, n_pos, scratch.data_ptr(),
         *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
         *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
@@ -168,7 +177,8 @@ def decode_fused(
 
 def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
     """Frame-aligned decode: [B, >= (3 + n_sym) * sym] frames starting at
-    their preamble -> hard bits int8 [B, n_sym * bits_per_symbol]."""
+    their preamble -> hard bits int8 [B, n_sym * bits_per_symbol]. One call
+    is one launch of kernel B's pipeline (peak; CE and demod)."""
     if not runs_on_kernel(frames):
         return decode_chunks_fused_reference(frames, mode, n_sym)
     from audio_modem_tpu_torch.kernels._build import check, load_library
@@ -176,11 +186,13 @@ def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> to
     b, t = frames.shape
     _check(frames, "frames", torch.float32, (b, t))
     dev = frames.device
-    tabs = profile_tables(mode, dev)
+    if n_sym < 1 or b < 1 or t < 1:
+        raise ValueError(f"need at least one frame, one sample and one symbol, got B={b}, T={t}, n_sym={n_sym}")
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
     lib = load_library()
+    scratch = torch.empty(lib.amtpu_decode_chunks_fused_scratch_floats(b), dtype=torch.float32, device=dev)
     code = lib.amtpu_decode_chunks_fused(
-        frames.data_ptr(), b, t, *_table_args(tabs, mode), n_sym, bits.data_ptr(),
+        frames.data_ptr(), b, t, *_table_args(mode, dev), n_sym, scratch.data_ptr(), bits.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(lib, code, "decode_chunks_fused")
@@ -226,12 +238,11 @@ def stream_demod(
     if n_sym < 1 or b < 1:
         raise ValueError(f"need at least one stream and one symbol, got B={b}, n_sym={n_sym}")
     dev = data.device
-    tabs = profile_tables(mode, dev)
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
     lib = load_library()
     code = lib.amtpu_stream_demod(
         data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
-        *_table_args(tabs, mode), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        *_table_args(mode, dev), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(lib, code, "stream_demod")
     count_launch("stream_demod")

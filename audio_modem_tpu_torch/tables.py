@@ -7,6 +7,9 @@ preamble and CE waveforms):
   rx_active  [fft, 2*n_active]  RX DFT (cos | -sin) at the active bins
   rx_data    [fft, 2*nd]        RX DFT at the data bins
   rx_pilot   [fft, 2*npi]       RX DFT at the pilot bins
+  rx_demod   [fft, ncol_pad]    rx_data | rx_pilot | zero columns up to a multiple
+                                of 16, so rows are whole 16-byte pieces: the
+                                table the demod kernels stage (``demod_table``)
   tx_data    [2*nd, sym]        TX data matrix: (cos | -sin) * 2/N rows of the
                                 data bins, columns cyclically extended by CP
   tx_pilot   [sym]              time-domain pilot row (pilots are 1+0j)
@@ -17,7 +20,8 @@ preamble and CE waveforms):
 
 ``profile_tables`` builds them from ``configs`` alone; ``tables_from_numpy``
 turns the JAX package's numpy arrays into the same tensors (the tests hold
-the two bit-identical).
+the two bit-identical) and derives ``rx_demod`` from ``rx_data`` and
+``rx_pilot``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 
 _FLOAT_KEYS = ("rx_active", "rx_data", "rx_pilot", "tx_data", "tx_pilot", "ce_known", "pre1", "header")
 _INDEX_KEYS = ("data_pos", "pilot_pos")
+DEMOD_COLUMN_MULTIPLE = 16  # rx_demod's width is padded to a multiple of this many floats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +44,7 @@ class Tables:
     rx_active: torch.Tensor
     rx_data: torch.Tensor
     rx_pilot: torch.Tensor
+    rx_demod: torch.Tensor
     tx_data: torch.Tensor
     tx_pilot: torch.Tensor
     ce_known: torch.Tensor
@@ -74,6 +80,14 @@ def _tx_tables(profile: OfdmProfile) -> tuple[np.ndarray, np.ndarray]:
     return extend(data).astype(np.float32), extend(pilot_body).astype(np.float32)
 
 
+def demod_table(rx_data: np.ndarray, rx_pilot: np.ndarray) -> np.ndarray:
+    """[fft, 2*nd] and [fft, 2*npi] -> [fft, ncol_pad]: the two tables side by
+    side, then zero columns up to a multiple of ``DEMOD_COLUMN_MULTIPLE``."""
+    both = np.concatenate([np.asarray(rx_data, np.float32), np.asarray(rx_pilot, np.float32)], axis=1)
+    pad = -both.shape[1] % DEMOD_COLUMN_MULTIPLE
+    return np.ascontiguousarray(np.pad(both, ((0, 0), (0, pad))))
+
+
 def numpy_tables(profile: OfdmProfile) -> dict:
     """The tables as numpy arrays, built from ``configs`` alone."""
     fft = profile.fft_size
@@ -97,9 +111,10 @@ def numpy_tables(profile: OfdmProfile) -> dict:
 
 def tables_from_numpy(arrays: dict, device) -> Tables:
     """numpy arrays (keys as in ``numpy_tables``) -> float32 / int32 tensors
-    on ``device``."""
+    on ``device``, ``rx_demod`` derived from ``rx_data`` and ``rx_pilot``."""
     dev = torch.device(device)
     out = {k: torch.as_tensor(np.asarray(arrays[k], np.float32)).contiguous().to(dev) for k in _FLOAT_KEYS}
+    out["rx_demod"] = torch.as_tensor(demod_table(arrays["rx_data"], arrays["rx_pilot"])).to(dev)
     out.update(
         {k: torch.as_tensor(np.asarray(arrays[k], np.int32)).contiguous().to(dev) for k in _INDEX_KEYS}
     )

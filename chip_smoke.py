@@ -16,8 +16,8 @@ config 2). Phases, one line each:
   4. kernel A (decode_fused, six gridded launches) against its plain
      version on those windows: start, coarse, coarse metric and detected
      equal, fine metric within 1e-5, channel within 1e-4, 0 flipped bits
-  5. kernel B (decode_chunks_fused) against its plain version on 64
-     frame-aligned frames
+  5. kernel B (decode_chunks_fused: peak, then CE and demod gridded over
+     symbol tiles) against its plain version on 64 frame-aligned frames
   6. the main path with launch counts from zero: one turbo round
      (_batch_window_decode_multi) and the frame-aligned packed demod of its
      frames; every slot must be detected, CRC-valid and in sequence
@@ -34,6 +34,9 @@ config 2). Phases, one line each:
      decode_long_fused vs kernel A at B = 1 (kernel A beside its bound),
      the streaming demod vs kernel B on the 64 narrowband frames, one
      api.decode of config 2 (host clock)
+ 11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9:
+     two checkouts whose kernels agree bit for bit print the same digests
+     (tools/torch_kernel_digest.py prints them for more inputs)
 
 then the kernels as one JSON line (time, plain time, launches on the main
 path, the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
@@ -45,6 +48,7 @@ CPU fallback: without a CUDA device the script stops before any result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
@@ -264,7 +268,8 @@ def main() -> None:
     # 5. kernel B against plain B on frame-aligned frames (first frame of each stream)
     aligned = frames.reshape(N_STREAMS, K, cadence)[:, 0, pre_s : pre_s + (3 + n_sym) * sym].contiguous()
     n_bits = n_sym * bits_per_symbol(mode)
-    kb = bits_to_bytes(receive.decode_chunks_fused(aligned, mode, n_sym)[:, :n_bits])
+    kb_bits = receive.decode_chunks_fused(aligned, mode, n_sym)
+    kb = bits_to_bytes(kb_bits[:, :n_bits])
     pb = bits_to_bytes(receive.decode_chunks_fused_reference(aligned, mode, n_sym)[:, :n_bits])
     torch.cuda.synchronize()
     err_b = (kb.to(torch.int32) - pb.to(torch.int32)).abs().max().item()
@@ -432,6 +437,13 @@ def main() -> None:
           f"decode_chunks_fused_stream {statistics.median([tcs1, tcs2]):.3f} ms ({tcs1:.3f}, {tcs2:.3f}) vs "
           f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); api.decode of config 2 "
           f"wall {statistics.median(walls):.1f} ms (runs {', '.join(f'{w:.1f}' for w in walls)})", flush=True)
+
+    # 11. digests of the kernels' bits
+    digests = {name: hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
+               for name, bits in (("decode_fused", ka["bits"]), ("decode_chunks_fused", kb_bits),
+                                  ("stream_demod", kl["bits"]))}
+    print("phase 11 digests of the kernels' bits (phases 4, 5, 9): "
+          + ", ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
 
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [

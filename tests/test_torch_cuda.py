@@ -1,6 +1,8 @@
 """Kernels A and B and the streaming demod on the card against their plain
 versions, at small shapes; kernel A's pipeline also at B = 1, 3 and 64 on
-windows that put its tiles' edges to the test. Marked ``cuda``: on a
+windows that put its tiles' edges to the test; kernel B's pipeline and the
+streaming demod at symbol counts around the demod tile's heights, on short,
+all-zero and unaligned rows. Marked ``cuda``: on a
 machine without a CUDA device each test skips with the reason (the CUDA
 kernels have no CPU or interpret mode).
 
@@ -17,7 +19,9 @@ import torch
 
 from audio_modem_tpu_torch import MODES, api, decoder, framing, phy, sync
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
+from audio_modem_tpu_torch.tables import profile_tables
 
 torch.set_num_threads(2)
 
@@ -152,6 +156,90 @@ def test_kernel_b_matches_plain(cuda_device, name):
     out = receive.decode_chunks_fused(fr, mode, n_sym)
     assert launch_counts()["decode_chunks_fused"] == 1
     assert torch.equal(out, receive.decode_chunks_fused_reference(fr, mode, n_sym))
+
+
+def _chunk_frames(mode, b: int, n_sym: int, seed: int) -> np.ndarray:
+    """[b, (3 + n_sym) * sym] frame-aligned frames: header, n_sym symbols of
+    random bits, an echo inside the CP and a gain per frame. No noise: the
+    plain version's matmul sums in another order than the kernel's fmaf
+    chain, and a noisy 64-QAM point within 1e-6 of a decision boundary may
+    then fall either way."""
+    rng = np.random.default_rng(seed)
+    bits = torch.from_numpy(rng.integers(0, 2, (min(b, 4), n_sym * bits_per_symbol(mode))).astype(np.int8))
+    data = phy.modulate(bits, mode).reshape(bits.shape[0], -1)
+    x = torch.cat([profile_tables(mode, "cpu").header.expand(bits.shape[0], -1), data], dim=1).numpy()
+    x = x + 0.3 * np.roll(x, 5, axis=1)
+    return (x[np.arange(b) % x.shape[0]] * rng.uniform(0.2, 3.0, (b, 1))).astype(np.float32)
+
+
+KERNEL_B_CASES = [(name, b, n_sym) for name in FIVE_MODES for b in (1, 3, 64) for n_sym in (1, 8, 9, 41)]
+KERNEL_B_CASES += [("BPSK-NARROW", 3, 598)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, b, n_sym", KERNEL_B_CASES)
+def test_kernel_b_pipeline_matches_plain(cuda_device, name, b, n_sym):
+    """Kernel B's two launches against decode_chunks_fused_reference at
+    symbol counts around its tile heights (23 and 31 symbols beside the CE
+    row): every bit equal."""
+    mode = MODES[name]
+    fr = torch.from_numpy(_chunk_frames(mode, b, n_sym, seed=b + n_sym)).to(cuda_device)
+    reset_launch_counts()
+    out = receive.decode_chunks_fused(fr, mode, n_sym)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_chunks_fused"] == 1
+    ref = receive.decode_chunks_fused_reference(fr, mode, n_sym)
+    assert torch.equal(out, ref), f"{int((out != ref).sum())} of {out.numel()} bits differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROFILE_MODES)
+@pytest.mark.parametrize("case", ["short", "odd_length", "zero_frame"])
+def test_kernel_b_edge_frames_match_plain(cuda_device, name, case):
+    """A frame shorter than (3 + n_sym) * sym (samples past T read as zeros),
+    a length that leaves the rows off 16-byte boundaries (the 4-byte staging
+    path), and an all-zero frame beside live ones (peak <= 1e-6: samples pass
+    through unscaled)."""
+    mode = MODES[name]
+    sym = mode.profile.symbol_len
+    n_sym = 26
+    fr = _chunk_frames(mode, 3, n_sym, seed=31)
+    if case == "short":
+        fr = fr[:, : fr.shape[1] - sym - sym // 3]
+    elif case == "odd_length":
+        fr = np.ascontiguousarray(fr[:, : fr.shape[1] - 3])
+    else:
+        fr[1] = 0.0
+    t = torch.from_numpy(np.ascontiguousarray(fr)).to(cuda_device)
+    out = receive.decode_chunks_fused(t, mode, n_sym)
+    torch.cuda.synchronize()
+    assert torch.equal(out, receive.decode_chunks_fused_reference(t, mode, n_sym))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROFILE_MODES)
+@pytest.mark.parametrize("case", ["wide_stride", "short_rows", "unaligned_rows"])
+def test_stream_demod_edge_rows_match_plain(cuda_device, name, case):
+    """The streaming demod on rows with a stride larger than L, on rows
+    shorter than n_sym * sym (zeros past L), and on rows that start off a
+    16-byte boundary."""
+    mode = MODES[name]
+    p = mode.profile
+    sym = p.symbol_len
+    n_sym = 37
+    t = torch.from_numpy(_chunk_frames(mode, 3, n_sym, seed=13)).to(cuda_device)
+    ch_re, ch_im = phy.estimate_channel(t[:, 2 * sym : 3 * sym], p)
+    scale = torch.tensor([0.7, 1.0, 1.9], dtype=torch.float32, device=cuda_device)
+    if case == "wide_stride":
+        data = t[:, 3 * sym : 3 * sym + n_sym * sym - 100]  # L < n_sym * sym, row stride > L
+    elif case == "short_rows":
+        data = t[:, 3 * sym : (3 + n_sym - 2) * sym].contiguous()
+    else:
+        data = torch.nn.functional.pad(t, (1, 0))[:, 3 * sym + 1 :]
+    assert data.stride(1) == 1
+    out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
+    torch.cuda.synchronize()
+    assert torch.equal(out, receive.stream_demod_reference(data, ch_re, ch_im, scale, mode, n_sym))
 
 
 @pytest.mark.cuda

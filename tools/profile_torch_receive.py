@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Device-side profile of the port's receive on one NVIDIA GPU, from
-torch.profiler: kernel A's time per stage (audio_modem_tpu_torch/csrc/
-receive.cu, ``amtpu_decode_fused``, six launches) and the turbo round's
-device busy share.
+torch.profiler: the time per launch of kernel A (audio_modem_tpu_torch/
+csrc/receive.cu, ``amtpu_decode_fused``, six launches), kernel B
+(``amtpu_decode_chunks_fused``: peak, then CE and demod in one launch) and the streaming demod
+(``amtpu_stream_demod``), and the turbo round's device busy share.
 
     python3 tools/profile_torch_receive.py [--reps 20]
 
 Inputs as chip_smoke.py builds them: the turbo round's slot 0 (64 QPSK
-windows of 914,688 samples, max_syms 41) and BASELINE config 2 at B = 1
-(7,913,472 samples, 12,361 symbols). For each, kernel A's whole call from
-CUDA events (median of ``--reps``), then every kernel's mean device time
-per call, and for the two stages that stream the window (pre_stats, scan)
-the rate at which they read it. Then the turbo round
+windows of 914,688 samples, max_syms 41) and its 64 frame-aligned frames,
+BASELINE config 2 at B = 1 (7,913,472 samples, 12,361 symbols) and its data
+region, and 64 BPSK-NARROW 512-byte chunk frames (598 symbols). For each,
+the whole call from CUDA events (median of ``--reps``), then every kernel's
+mean device time per call, and for the two stages of kernel A that stream
+the window (pre_stats, scan) the rate at which they read it. Beside each
+demod, as a yardstick for its DFT stage alone (neither computes the
+kernel's function, and the port calls neither): ``torch.fft.rfft`` of the
+same symbol bodies, and ``torch.matmul`` of them with ``Tables.rx_demod``.
+Then the turbo round
 (``_batch_window_decode_multi``, 64 streams x 32 frames): its time from
 CUDA events without the profiler (median of ``--reps``), and the device
 time of its kernels and copies per round under the profiler; their ratio
@@ -22,6 +28,7 @@ name and power limit first. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -33,9 +40,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from audio_modem_tpu_torch import decoder  # noqa: E402
+from audio_modem_tpu_torch import MODES, decoder, framing  # noqa: E402
 from audio_modem_tpu_torch.kernels import receive  # noqa: E402
 from audio_modem_tpu_torch.parallel import multi_receiver  # noqa: E402
+from audio_modem_tpu_torch.tables import profile_tables  # noqa: E402
 
 STREAMING_STAGES = ("pre_stats_kernel", "scan_kernel")
 
@@ -50,19 +58,43 @@ def device_events(call, reps: int) -> list[tuple[str, float, int]]:
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0]
 
 
-def profile_kernel_a(label: str, args: tuple, reps: int, n_bytes_window: int) -> None:
-    call = lambda: receive.decode_fused(*args)  # noqa: E731
+def profile_call(label: str, call, reps: int, n_bytes_window: int = 0) -> None:
+    """One wrapper call: its time from CUDA events, then its kernels by name."""
     ms = chip_smoke.time_ms(call, reps=reps)
     rows = [(name, us / reps, n / reps) for name, us, n in device_events(call, reps)]
     total = sum(r[1] for r in rows)
     print(f"{label}: call {ms:.4f} ms (CUDA events, median of {reps}); kernels {total / 1e3:.4f} ms per call "
           f"(torch.profiler)")
     for name, us, per_call in sorted(rows, key=lambda r: -r[1]):
-        short = next((s for s in name.split("(")[0].split() if "kernel" in s), name)
+        kernel = re.search(r"\w+_kernel", name)
+        tile = re.search(r"Tile<[^>]*>", name)
+        short = (kernel.group(0) if kernel else name[:100]) + (f" [{tile.group(0)}]" if tile else "")
         rate = ""
-        if any(s in short for s in STREAMING_STAGES):
+        if n_bytes_window and any(s in short for s in STREAMING_STAGES):
             rate = f", window read at {n_bytes_window / (us * 1e-6) / 1e12:.2f} TB/s"
         print(f"  {short}: {us / 1e3:.4f} ms per call ({per_call:g} launches){rate}")
+
+
+def dft_yardsticks(label: str, region: torch.Tensor, mode, n_sym: int, reps: int) -> None:
+    """The DFT stage alone on the symbols of ``region`` [B, >= n_sym * sym]:
+    rfft of the [B * n_sym, fft] bodies, and their product with rx_demod."""
+    p = mode.profile
+    bodies = region[:, : n_sym * p.symbol_len].reshape(-1, p.symbol_len)[:, p.cp_len :].contiguous()
+    tab = profile_tables(mode, region.device).rx_demod
+    t_fft = chip_smoke.time_ms(lambda: torch.fft.rfft(bodies), reps=reps)
+    t_mm = chip_smoke.time_ms(lambda: torch.matmul(bodies, tab), reps=reps)
+    print(f"  yardstick for the DFT stage of {label} ({bodies.shape[0]} bodies of {bodies.shape[1]}): "
+          f"torch.fft.rfft {t_fft:.4f} ms, torch.matmul with rx_demod {tuple(tab.shape)} {t_mm:.4f} ms")
+
+
+def chunk_frames(name: str, size: int, dev, rng):
+    """64 frame-aligned chunk frames of ``size`` payload bytes: (frames, mode, n_sym)."""
+    mode = MODES[name]
+    p = mode.profile
+    n_sym = framing.num_symbols_for_payload(size + 11, mode)
+    fr = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(chip_smoke.N_STREAMS)], 0, mode, device=dev)
+    pre = p.silence_pre_chunk(False)
+    return fr[:, pre : pre + (3 + n_sym) * p.symbol_len].contiguous(), mode, n_sym
 
 
 def profile_round(windows, n_valid, min_pos, mode, n_sym: int, cadence: int, reps: int) -> None:
@@ -89,15 +121,37 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     dev = torch.device("cuda", 0)
-    mode, _, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(
-        dev, np.random.default_rng(chip_smoke.SEED))
-    profile_kernel_a("turbo slot 0 [64, 914688]", (windows, n_valid, min_pos, mode, n_sym), reps,
-                     windows.numel() * 4)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    mode, frames, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(dev, rng)
+    profile_call("kernel A, turbo slot 0 [64, 914688]",
+                 lambda: receive.decode_fused(windows, n_valid, min_pos, mode, n_sym), reps, windows.numel() * 4)
+    sym = mode.profile.symbol_len
+    pre_s = mode.profile.silence_pre_chunk(False)
+    aligned = frames.reshape(chip_smoke.N_STREAMS, chip_smoke.K, cadence)[
+        :, 0, pre_s : pre_s + (3 + n_sym) * sym].contiguous()
+    profile_call(f"kernel B, 64 QPSK frames x {n_sym} symbols",
+                 lambda: receive.decode_chunks_fused(aligned, mode, n_sym), reps)
+    dft_yardsticks("the 64 QPSK frames", aligned[:, 3 * sym :], mode, n_sym, reps)
+
     mode2, _, noisy2 = chip_smoke.config2_signal(dev)
     padded2 = decoder._padded(noisy2)
+    ms2 = decoder._max_symbols(padded2.shape[0], mode2)
     args2 = (padded2[None], torch.tensor([noisy2.shape[0]], dtype=torch.int32, device=dev),
-             torch.zeros(1, dtype=torch.int32, device=dev), mode2, decoder._max_symbols(padded2.shape[0], mode2))
-    profile_kernel_a(f"config 2 at B = 1 [1, {padded2.shape[0]}]", args2, reps, padded2.numel() * 4)
+             torch.zeros(1, dtype=torch.int32, device=dev), mode2, ms2)
+    profile_call(f"kernel A, config 2 at B = 1 [1, {padded2.shape[0]}]",
+                 lambda: receive.decode_fused(*args2), reps, padded2.numel() * 4)
+    head, region = receive._front_end(*args2)
+    ones = torch.ones(1, dtype=torch.float32, device=dev)
+    profile_call(f"streaming demod, config 2 ({ms2} symbols)",
+                 lambda: receive.stream_demod(region, head["ch_re"], head["ch_im"], ones, mode2, ms2), reps)
+    dft_yardsticks("config 2", region, mode2, ms2, reps)
+
+    fr_n, mode_n, ns_n = chunk_frames("BPSK-NARROW", 512, dev, rng)
+    profile_call(f"kernel B, 64 BPSK-NARROW frames x {ns_n} symbols",
+                 lambda: receive.decode_chunks_fused(fr_n, mode_n, ns_n), reps)
+    profile_call(f"decode_chunks_fused_stream (plain prologue + streaming demod), the same {ns_n}-symbol frames",
+                 lambda: receive.decode_chunks_fused_stream(fr_n, mode_n, ns_n), reps)
+    dft_yardsticks("the 64 narrowband frames", fr_n[:, 3 * mode_n.profile.symbol_len :], mode_n, ns_n, reps)
     profile_round(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
 
 

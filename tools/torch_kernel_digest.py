@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""SHA-256 digests of the int8 bits that the port's three hand kernels
+emit on chip_smoke.py's inputs, to compare two checkouts bit for bit.
+
+    python3 tools/torch_kernel_digest.py [--root CHECKOUT]
+
+Imports ``chip_smoke`` and ``audio_modem_tpu_torch`` from ``--root`` (this
+checkout by default) and builds the inputs as chip_smoke.py does, from the
+same seeds in the same order: the turbo windows (phase 4), their 64
+frame-aligned frames (phase 5), the 64 BPSK-NARROW and 64 QPSK chunk frames
+(phase 8) and BASELINE config 2's padded signal (phase 9). One line per
+(input, entry point): the digest of the whole bits tensor. Two checkouts
+whose kernels agree bit for bit print the same lines. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import sys
+from pathlib import Path
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent)
+    root = ap.parse_args().root.resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_digest: FAILED: torch.cuda.is_available() is False")
+    import chip_smoke
+    from audio_modem_tpu_torch import MODES, decoder, framing
+    from audio_modem_tpu_torch.kernels import receive
+
+    def show(label: str, bits: torch.Tensor) -> None:
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
+        print(f"{label}: {tuple(bits.shape)} {digest}", flush=True)
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    mode, frames, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(dev, rng)
+    p = mode.profile
+    show("phase 4 turbo windows decode_fused", receive.decode_fused(windows, n_valid, min_pos, mode, n_sym)["bits"])
+    pre_s = p.silence_pre_chunk(False)
+    aligned = frames.reshape(chip_smoke.N_STREAMS, chip_smoke.K, cadence)[
+        :, 0, pre_s : pre_s + (3 + n_sym) * p.symbol_len].contiguous()
+    show("phase 5 aligned frames decode_chunks_fused", receive.decode_chunks_fused(aligned, mode, n_sym))
+    for name, size in (("BPSK-NARROW", 512), ("QPSK", 2048)):
+        m = MODES[name]
+        pm = m.profile
+        ns = framing.num_symbols_for_payload(size + 11, m)
+        fr = framing.build_data_chunk_frames(
+            [rng.bytes(size) for _ in range(chip_smoke.N_STREAMS)], 0, m, device=dev)
+        pre = pm.silence_pre_chunk(False)
+        fr = fr[:, pre : pre + (3 + ns) * pm.symbol_len].contiguous()
+        show(f"phase 8 {name} frames decode_chunks_fused", receive.decode_chunks_fused(fr, m, ns))
+        show(f"phase 8 {name} frames decode_chunks_fused_stream", receive.decode_chunks_fused_stream(fr, m, ns))
+    mode2, _, noisy2 = chip_smoke.config2_signal(dev)
+    padded2 = decoder._padded(noisy2)
+    ms2 = decoder._max_symbols(padded2.shape[0], mode2)
+    nv2 = torch.tensor([noisy2.shape[0]], dtype=torch.int32, device=dev)
+    mp2 = torch.zeros(1, dtype=torch.int32, device=dev)
+    show("phase 9 config 2 decode_long_fused (stream_demod)",
+         receive.decode_long_fused(padded2[None], nv2, mp2, mode2, ms2)["bits"])
+    show("phase 9 config 2 decode_fused at B = 1", receive.decode_fused(padded2[None], nv2, mp2, mode2, ms2)["bits"])
+
+
+if __name__ == "__main__":
+    main()
