@@ -6,6 +6,7 @@ mirroring the reference app layer:
   encode_legacy()  buildTransmitSignal (modem.js:498-555)
   encode_chunked() metadata frame + one data frame per chunk (app.js:201-303)
   decode()         decodeReceivedSignal (modem.js:557-654)
+  decode_chunked() full receive of a chunked transmission from one recording
 
 Same signatures as the JAX package plus a keyword ``device``: signals are
 synthesized on it and decoded on it (see ``decoder``). It defaults to
@@ -16,6 +17,7 @@ or a mode name.
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Iterator
 
 import numpy as np
@@ -23,7 +25,7 @@ import torch
 
 from audio_modem_tpu_torch import decoder, framing
 from audio_modem_tpu_torch.configs import CHUNK_THRESHOLD, ModemMode, get_mode
-from audio_modem_tpu_torch.framing import ParseResult
+from audio_modem_tpu_torch.framing import FrameError, ParseResult
 
 
 def _resolve(mode: str | ModemMode) -> ModemMode:
@@ -86,3 +88,48 @@ def decode(
     """Full-signal decode of one frame (modem.js:557-654) on ``device``.
     ``track_timing`` turns on the clock-drift timing tracker (extension)."""
     return decoder.decode_signal(signal, _resolve(mode), track_timing=track_timing, device=device)
+
+
+@dataclasses.dataclass
+class ChunkedDecodeResult:
+    file_name: str
+    data: bytes
+    total_chunks: int
+    received_chunks: int
+    missing_chunks: list[int]
+    crc_errors: int
+
+    @property
+    def complete(self) -> bool:
+        return not self.missing_chunks
+
+
+def decode_chunked(
+    signal: "np.ndarray | torch.Tensor", mode: str | ModemMode = "QPSK", fec: bool = False, device="cuda"
+) -> ChunkedDecodeResult | FrameError:
+    """Decode a full chunked transmission from one long recording by scanning
+    frame-by-frame (offline analog of the streaming receiver). The recording
+    is host audio: a tensor is brought to the host first, and the receiver
+    uploads each window it scans, refines or decodes to ``device``."""
+    from audio_modem_tpu_torch.runtime.receiver import StreamingReceiver
+
+    m = _resolve(mode)
+    rx = StreamingReceiver(m, fec=fec, device=device)
+    if isinstance(signal, torch.Tensor):
+        signal = signal.detach().cpu().numpy()
+    signal = np.asarray(signal, dtype=np.float32).reshape(-1)
+    block = 4096
+    for off in range(0, len(signal), block):
+        rx.process_audio_block(signal[off : off + block])
+    rx.flush()
+    asm = rx.assembler
+    if asm.total_chunks == 0:
+        return FrameError("No metadata frame received")
+    return ChunkedDecodeResult(
+        file_name=asm.file_name,
+        data=asm.assemble(),
+        total_chunks=asm.total_chunks,
+        received_chunks=asm.received_count,
+        missing_chunks=asm.missing_chunks(),
+        crc_errors=asm.crc_errors,
+    )

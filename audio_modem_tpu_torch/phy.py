@@ -16,6 +16,11 @@ from audio_modem_tpu_torch.ops.dft import synthesize_data_symbols, time_to_spec,
 from audio_modem_tpu_torch.tables import profile_tables
 
 
+def add_cp(body: torch.Tensor, profile: OfdmProfile) -> torch.Tensor:
+    """[..., fft_size] -> [..., symbol_len] (modem.js:202-208)."""
+    return torch.cat([body[..., -profile.cp_len :], body], dim=-1)
+
+
 def strip_cp(symbols: torch.Tensor, profile: OfdmProfile) -> torch.Tensor:
     """[..., symbol_len] -> [..., fft_size] (modem.js:374-378)."""
     return symbols[..., profile.cp_len : profile.cp_len + profile.fft_size]

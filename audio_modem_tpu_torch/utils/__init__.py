@@ -1,0 +1,1 @@
+"""Host utilities: WAV I/O, metrics, logging, tracing."""

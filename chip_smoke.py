@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full size: the turbo receive round (64 QPSK
-streams, 2048-byte chunks, 32 frames per round; BASELINE config 5) and the
+Drives the port's three paths at full size: the turbo receive round (64 QPSK
+streams, 2048-byte chunks, 32 frames per round; BASELINE config 5), the
 single-signal decode (api.encode -> api.decode of a 32,736-byte file as one
 BPSK-REPEAT legacy frame of 7,906,500 samples under 12 dB AWGN; BASELINE
-config 2). Phases, one line each:
+config 2) and the chunked-file receive (api.encode_chunked ->
+api.decode_chunked of a 1 MiB file in QPSK, 513 frames, 14.6 M samples;
+BASELINE config 3). Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
   2. build the CUDA kernels from audio_modem_tpu_torch/csrc
@@ -37,9 +39,31 @@ config 2). Phases, one line each:
  11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9:
      two checkouts whose kernels agree bit for bit print the same digests
      (tools/torch_kernel_digest.py prints them for more inputs)
+ 12. the chunked receive with launch counts from zero: a seeded 1 MiB file
+     through api.encode_chunked on the card, brought to the host as audio,
+     through api.decode_chunked(device="cuda") twice: complete, 512 chunks,
+     none missing, no CRC error, exact bytes, stream_demod launched once per
+     frame; wall time, Msamples/s, multiple of real time, and the host's
+     ms per scan, refine and frame-decode call (second run)
+ 13. the same at 768-sample symbols: an 8 KiB file in BPSK-NARROW behind
+     20,000 samples of seeded noise at amplitude 1e-3; exact bytes
+ 14. persist and resume: the metadata frame and the first 256 data frames
+     of the 1 MiB transfer into a StreamingReceiver with a sqlite store,
+     then a second receiver with resume=True takes a replayed metadata
+     frame and the other 256; the assembled file is exact
+ 15. device-ring rounds: 64 staggered streams of 2 x 32 frames written in
+     blocks into a DeviceRing(64, 2 x 914,688) whose write position wraps;
+     round 1 (_batch_window_decode_multi_dev) equals
+     _batch_window_decode_multi on the same windows, round 2
+     (_batch_window_decode_pred_dev) is predicted from round 1's last start
+     plus the cadence; every slot of both detected, CRC-valid and in
+     sequence; decode_fused launches in round 1 only; both rounds' ms, the
+     ring's write and gather ms
+ 16. the retry ladder's timing tracker: api.decode(track_timing=True) of the
+     32,736-byte QPSK frame, exact bytes, wall ms
 
-then the kernels as one JSON line (time, plain time, launches on the main
-path, the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+then the kernels as one JSON line (time, plain time, launches summed over
+the paths of phases 6, 9, 12, 13 and 15, each counted from zero, the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, from this run's shapes, each DFT counted at the cost
 of a real-input FFT), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. There is no
@@ -48,12 +72,14 @@ CPU fallback: without a CUDA device the script stops before any result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -178,6 +204,238 @@ def config2_signal(dev):
     gen.manual_seed(SEED)
     noise_power = (sigs[0] * sigs[0]).mean() / (10.0 ** (12.0 / 10.0))
     return mode, data, sigs[0] + torch.randn(sigs[0].shape, generator=gen, device=dev) * torch.sqrt(noise_power)
+
+
+@contextlib.contextmanager
+def receiver_stages():
+    """A StageTimer over the streaming receiver while the block runs. Stages,
+    on the host's clock (each ends in a copy back to the host, so device
+    time is inside): ``scan``, ``refine`` and ``frame`` are the receiver's
+    three state handlers; ``scan_call``, ``refine_call`` count the device
+    calls inside the first two (their time is the enqueue alone);
+    ``assembler`` is the chunk store inside ``frame``."""
+    from audio_modem_tpu_torch.runtime import assembler, receiver
+    from audio_modem_tpu_torch.utils.trace import StageTimer
+
+    timer = StageTimer()
+    patched = []
+
+    def wrap(owner, attr: str, stage: str) -> None:
+        inner = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            with timer.stage(stage):
+                return inner(*args, **kw)
+
+        patched.append((owner, attr, inner))
+        setattr(owner, attr, timed)
+
+    wrap(receiver.StreamingReceiver, "_scan", "scan")
+    wrap(receiver.StreamingReceiver, "_refine", "refine")
+    wrap(receiver.StreamingReceiver, "_demodulate_frame", "frame")
+    wrap(receiver, "_scan_window", "scan_call")
+    wrap(receiver, "_refine_window", "refine_call")
+    wrap(assembler.ChunkAssembler, "handle_metadata", "assembler")
+    wrap(assembler.ChunkAssembler, "handle_data_chunk", "assembler")
+    try:
+        yield timer
+    finally:
+        for owner, attr, inner in reversed(patched):
+            setattr(owner, attr, inner)
+
+
+def chunked_frames(data: bytes, mode_name: str, file_name: str, dev) -> list:
+    """The frames of a chunked transmission, synthesized on ``dev`` and
+    brought to the host as the float32 audio a sound card would deliver."""
+    from audio_modem_tpu_torch import api
+
+    return [f.cpu().numpy() for f in api.encode_chunked(data, mode_name, file_name, device=dev)]
+
+
+def stage_split(timer, wall_s: float) -> dict:
+    """Seconds and ms per call of the receiver's stages from a
+    ``receiver_stages`` timer, and what is left of ``wall_s`` (ingest: DC
+    removal, ring writes, the FSM)."""
+    sec, calls = timer.seconds, timer.calls
+    frame = sec["frame"] - sec["assembler"]
+
+    def per(seconds: float, n: int) -> float:
+        return seconds / n * 1e3 if n else 0.0
+
+    return {
+        "scan_s": sec["scan"], "scan_calls": calls["scan_call"], "scan_ms": per(sec["scan"], calls["scan_call"]),
+        "refine_s": sec["refine"], "refine_calls": calls["refine_call"],
+        "refine_ms": per(sec["refine"], calls["refine_call"]),
+        "frame_s": frame, "frame_calls": calls["frame"], "frame_ms": per(frame, calls["frame"]),
+        "assembler_s": sec["assembler"],
+        "ingest_s": wall_s - sec["scan"] - sec["refine"] - sec["frame"],
+    }
+
+
+def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: int) -> tuple[int, str]:
+    """``api.decode_chunked`` of ``signal`` on ``dev``, ``runs`` times, launch
+    counts from zero each time: the file must come back complete and exact
+    with ``stream_demod`` launched at least once per frame. Returns (launches
+    of the last run, a report line)."""
+    from audio_modem_tpu_torch import MODES, api
+    from audio_modem_tpu_torch.configs import SAMPLE_RATE
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    chunk = MODES[mode_name].chunk_size
+    total = -(-len(data) // chunk)
+    walls = []
+    for _ in range(runs):
+        reset_launch_counts()
+        with receiver_stages() as timer:
+            t0 = time.perf_counter()
+            res = api.decode_chunked(signal, mode_name, device=dev)
+            walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        if not isinstance(res, api.ChunkedDecodeResult):
+            fail(f"{label}: decode_chunked gave {getattr(res, 'error', res)}")
+        if not (res.complete and res.total_chunks == total and res.received_chunks == total
+                and res.missing_chunks == [] and res.crc_errors == 0):
+            fail(f"{label}: {res.received_chunks} of {res.total_chunks} chunks, missing "
+                 f"{res.missing_chunks[:8]}, {res.crc_errors} CRC errors")
+        if res.data != data:
+            fail(f"{label}: the assembled file differs from what was sent")
+        if counts["stream_demod"] < total + 1:
+            fail(f"{label}: {total + 1} frames but stream_demod launched {counts['stream_demod']} times")
+    wall = walls[-1]
+    split = stage_split(timer, wall)
+    n = len(signal)
+    line = (f"{n} samples ({n / SAMPLE_RATE:.1f} s of audio) -> {len(data)} exact bytes in {total} chunks, none "
+            f"missing, 0 CRC errors; launches {counts}; wall {wall:.3f} s (runs "
+            f"{', '.join(f'{w:.3f}' for w in walls)}) = {n / wall / 1e6:.3f} Msamples/s = "
+            f"{n / SAMPLE_RATE / wall:.1f}x real time; host clock: scan {split['scan_s']:.3f} s in "
+            f"{split['scan_calls']} calls ({split['scan_ms']:.3f} ms each), refine {split['refine_s']:.3f} s in "
+            f"{split['refine_calls']} ({split['refine_ms']:.3f} ms), frame decode {split['frame_s']:.3f} s in "
+            f"{split['frame_calls']} ({split['frame_ms']:.3f} ms), assembler {split['assembler_s']:.3f} s, "
+            f"ingest {split['ingest_s']:.3f} s")
+    return counts["stream_demod"], line
+
+
+def resume_receive(data: bytes, frames: list, mode_name: str, dev) -> str:
+    """Persist and resume: the metadata frame and the first half of the data
+    frames into a receiver with a sqlite store; a second receiver with
+    ``resume=True`` on the same store takes a replayed metadata frame and
+    the other half. Returns a report line."""
+    import numpy as np
+
+    from audio_modem_tpu_torch import MODES
+    from audio_modem_tpu_torch.runtime.receiver import StreamingReceiver
+
+    mode = MODES[mode_name]
+    half = 1 + (len(frames) - 1) // 2
+
+    def feed(rx, signal) -> None:
+        for off in range(0, len(signal), 4096):
+            rx.process_audio_block(signal[off : off + 4096])
+        rx.flush()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db = str(Path(tmp) / "chunks.db")
+        rx1 = StreamingReceiver(mode, persist_path=db, device=dev)
+        feed(rx1, np.concatenate(frames[:half]))
+        stored = rx1.assembler.received_count
+        rx1.cleanup()
+        if stored != half - 1:
+            fail(f"persist: {stored} chunks stored of the first {half - 1}")
+        rx2 = StreamingReceiver(mode, persist_path=db, resume=True, device=dev)
+        resumed = rx2.assembler.received_count
+        if resumed != stored:
+            fail(f"resume: the store gave back {resumed} chunks of {stored}")
+        feed(rx2, np.concatenate([frames[0]] + frames[half:]))
+        asm = rx2.assembler
+        ok = asm.is_complete and asm.crc_errors == 0 and asm.assemble() == data
+        size = Path(db).stat().st_size
+        rx2.cleanup()
+        if not ok:
+            fail(f"resume: {asm.received_count} of {asm.total_chunks} chunks, file differs or incomplete")
+    return (f"{stored} chunks persisted by the first receiver, {resumed} found by the second "
+            f"(resume=True), {len(frames) - half} more received; the assembled {len(data)} bytes are exact "
+            f"(sqlite store {size} bytes)")
+
+
+def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536) -> tuple[int, str]:
+    """Two rounds out of a DeviceRing. ``frames`` [n * K, cadence] are K data
+    frames per stream; stream i is delayed by 16 * (i % 8) samples and sends
+    its K frames twice. After a quiet lead-in that makes the ring's write
+    position wrap, everything is written in blocks. Returns (decode_fused
+    launches of the two rounds, a report line)."""
+    import numpy as np
+    import torch
+
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+
+    n, k = N_STREAMS, K
+    sym = mode.profile.symbol_len
+    w = -(-(k * cadence + 4 * sym + mode.profile.fft_size + 2048) // 128) * 128
+    leads = [16 * (i % 8) for i in range(n)]
+    lead_in = w // 2
+    length = lead_in + max(leads) + k * cadence + w
+    stream = torch.zeros((n, length), dtype=torch.float32, device=dev)
+    twice = frames.reshape(n, k * cadence).repeat(1, 2)
+    for i, lead in enumerate(leads):
+        stream[i, lead_in + lead : lead_in + lead + 2 * k * cadence] = twice[i]
+    ring = mr.DeviceRing(n, 2 * w, device=dev)
+    for off in range(0, length, block):
+        ring.write(stream[:, off : off + block])
+    if not ring.total_written == length > ring.capacity:
+        fail(f"device ring: wrote {ring.total_written} of {length} samples into {ring.capacity}")
+
+    def windows_at(base: int) -> torch.Tensor:
+        return stream[:, base : base + w].contiguous()
+
+    def check(label: str, packed: torch.Tensor) -> np.ndarray:
+        cls = mr._classify_round(packed.cpu().numpy(), mode.chunk_size)
+        if cls is None:
+            fail(f"{label}: packed rows too narrow")
+        det, starts, full, seq = cls
+        if not (det.all() and full.all() and (seq == np.arange(k)[None, :]).all()):
+            fail(f"{label}: {int((~det).sum())} slots not detected, {int((~full).sum())} not CRC-valid, "
+                 f"or out of sequence")
+        return starts
+
+    # round 1: slot 0 scanned
+    g1 = lead_in
+    n_valid = np.full(n, w, np.int32)
+    params1 = np.stack([np.full(n, ring.rel(g1), np.int32), np.zeros(n, np.int32), n_valid])
+    reset_launch_counts()
+    packed1 = mr._batch_window_decode_multi_dev(ring, params1, mode, n_sym, k, cadence, w)
+    c1 = launch_counts()["decode_fused"]
+    starts1 = check("device ring round 1", packed1)
+    dev1 = torch.from_numpy(params1).to(dev)
+    direct = mr._batch_window_decode_multi(windows_at(g1), dev1[1], dev1[2], mode, n_sym, k, cadence)
+    if not torch.equal(packed1, direct):
+        fail("device ring round 1 differs from _batch_window_decode_multi on the same windows")
+    # round 2: the next window, every slot predicted
+    g2 = g1 + k * cadence
+    pred0 = (starts1[:, -1] + cadence - k * cadence).astype(np.int32)
+    params2 = np.stack([np.full(n, ring.rel(g2), np.int32), pred0, n_valid])
+    reset_launch_counts()
+    packed2 = mr._batch_window_decode_pred_dev(ring, params2, mode, n_sym, k, cadence, w)
+    c2 = launch_counts()["decode_fused"]
+    starts2 = check("device ring round 2", packed2)
+    if not np.array_equal(starts2, starts1):
+        fail("device ring round 2: the repeated frames were found at other window positions than round 1's")
+    wraps = (ring.total_written + ring.rel(g2)) % ring.capacity + w > ring.capacity
+    if c1 < 1 or c2 != 0:
+        fail(f"device ring: decode_fused launched {c1} times in round 1 and {c2} in round 2")
+    t1 = time_ms(lambda: mr._batch_window_decode_multi_dev(ring, params1, mode, n_sym, k, cadence, w), reps=5, warm=1)
+    t2 = time_ms(lambda: mr._batch_window_decode_pred_dev(ring, params2, mode, n_sym, k, cadence, w), reps=5, warm=1)
+    t_gather = time_ms(lambda: mr._ring_gather(ring, range(n), params2[0].tolist(), w))
+    blk = stream[:, :block].contiguous()
+    t_write = time_ms(lambda: ring.write(blk))  # last: the writes move the ring on
+    msps = k * cadence * n / 1e3
+    return c1, (f"ring [{n}, {ring.capacity}] written in blocks of {block} ({length} samples a stream, write "
+                f"position wrapped; round 2's windows {'cross' if wraps else 'do not cross'} the buffer's end); "
+                f"round 1 (_batch_window_decode_multi_dev) equals _batch_window_decode_multi on the same windows, "
+                f"round 2 (_batch_window_decode_pred_dev) predicted from round 1's last start + cadence; "
+                f"{n} x {k} slots of each detected, CRC-valid, in sequence; decode_fused launches {c1} and {c2}; "
+                f"round 1 {t1:.3f} ms = {msps / t1:.1f} Msamples/s, round 2 {t2:.3f} ms = {msps / t2:.1f} "
+                f"Msamples/s; window gather {t_gather:.3f} ms, block write {t_write:.4f} ms")
 
 
 def compare_receive(label: str, out: dict, ref: dict, n_valid, mode) -> tuple[float, float, int, int]:
@@ -445,10 +703,65 @@ def main() -> None:
     print("phase 11 digests of the kernels' bits (phases 4, 5, 9): "
           + ", ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
 
+    # 12. chunked receive, BASELINE config 3 at full width
+    data12 = np.random.default_rng(SEED + 12).bytes(1 << 20)
+    frames12 = chunked_frames(data12, "QPSK", "config3.bin", dev)
+    chunked_launches, line = chunked_receive("chunked QPSK", data12, "QPSK", np.concatenate(frames12), dev, runs=2)
+    stream_launches += chunked_launches
+    print(f"phase 12 chunked receive QPSK {card}: {line}", flush=True)
+    # stream_demod as that path calls it: one frame, B = 1, the symbol bucket of a 2048-byte chunk
+    m12 = MODES["QPSK"]
+    pre12 = m12.profile.silence_pre_chunk(False)
+    fr12, _, nb12 = decoder.pad_aligned_frame(frames12[1][pre12:] / np.abs(frames12[1]).max(), m12, device=dev)
+    ch12 = decoder._frame_channel(fr12, m12)
+    region12 = fr12[None, 3 * m12.profile.symbol_len :]
+    run_f = lambda: receive.stream_demod(region12, ch12[0][None], ch12[1][None], ones, m12, nb12)  # noqa: E731
+    plain_f = lambda: receive.stream_demod_reference(  # noqa: E731
+        region12, ch12[0][None], ch12[1][None], ones, m12, nb12)
+    if not torch.equal(run_f(), plain_f()):
+        fail("stream_demod differs from its plain version on a chunk frame")
+    pf1, kf1, kf2, pf2 = time_ms(plain_f), time_ms(run_f), time_ms(run_f), time_ms(plain_f)
+    ms_f = statistics.median([kf1, kf2])
+    bound_f = bound_ms(*work_stream_demod(m12, 1, nb12))
+    print(f"phase 12 stream_demod on one chunk frame ({nb12} symbols, B = 1) {card}: {ms_f:.4f} ms ({kf1:.4f}, "
+          f"{kf2:.4f}) vs plain {statistics.median([pf1, pf2]):.4f} ms ({pf1:.4f}, {pf2:.4f}), bound "
+          f"{bound_f[0]:.6f} ms ({bound_f[1]}); {chunked_launches} launches x (time - bound) = "
+          f"{chunked_launches * (ms_f - bound_f[0]):.1f} ms of the transfer", flush=True)
+
+    # 13. the same at a second symbol length, behind noise
+    data13 = np.random.default_rng(SEED + 13).bytes(8 << 10)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    gap = (torch.randn(20000, generator=gen, device=dev) * 1e-3).cpu().numpy()
+    sig13 = np.concatenate([gap] + chunked_frames(data13, "BPSK-NARROW", "narrow.bin", dev))
+    narrow_launches, line = chunked_receive("chunked BPSK-NARROW", data13, "BPSK-NARROW", sig13, dev, runs=1)
+    stream_launches += narrow_launches
+    print(f"phase 13 chunked receive BPSK-NARROW {card}: 20000 samples of noise at 1e-3, then {line}", flush=True)
+
+    # 14. persist and resume
+    print(f"phase 14 persist/resume: {resume_receive(data12, frames12, 'QPSK', dev)}", flush=True)
+    del frames12
+
+    # 15. device-ring rounds
+    ring_launches, line = ring_rounds(dev, mode, frames, n_sym, cadence)
+    print(f"phase 15 device ring {card}: {line}", flush=True)
+
+    # 16. the retry ladder's timing tracker
+    walls16 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res16, _ = api.decode(sig3, "QPSK", track_timing=True, device=dev)
+        walls16.append((time.perf_counter() - t0) * 1e3)
+        if not (isinstance(res16, framing.LegacyFrame) and res16.crc_valid and res16.data == data3):
+            fail(f"api.decode(track_timing=True): {getattr(res16, 'error', type(res16).__name__)}")
+    print(f"phase 16 retry ladder {card}: api.decode(track_timing=True) of the {sig3.shape[0]}-sample QPSK frame -> "
+          f"{len(data3)} exact bytes; wall {statistics.median(walls16):.1f} ms (runs "
+          f"{', '.join(f'{w:.1f}' for w in walls16)})", flush=True)
+
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
-         "replaces": "audio_modem_tpu/kernels/receive.py:375", "launches": counts["decode_fused"],
+         "replaces": "audio_modem_tpu/kernels/receive.py:375", "launches": counts["decode_fused"] + ring_launches,
          "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1), "ms": ms_a, "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,

@@ -340,3 +340,82 @@ def test_api_decode_on_card_matches_cpu(cuda_device, case):
 def test_decoder_raises_for_a_tensor_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         decoder.decode_signal(torch.zeros(40000, device=cuda_device), MODES["QPSK"], device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FIVE_MODES)
+def test_decode_chunked_on_card_matches_cpu(cuda_device, name):
+    """A 4-chunk file through api.decode_chunked on the card and on the CPU:
+    the same result field by field, one stream_demod launch per frame."""
+    mode = MODES[name]
+    data = np.random.default_rng(61).bytes(3 * mode.chunk_size + 77)
+    signal = torch.cat(list(api.encode_chunked(data, mode, "card.bin", device="cpu"))).numpy()
+    want = api.decode_chunked(signal, mode, device="cpu")
+    reset_launch_counts()
+    got = api.decode_chunked(signal, mode, device=cuda_device)
+    assert launch_counts()["stream_demod"] >= 5
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.complete and got.total_chunks == 4 and got.data == data
+    # a tensor on the card is brought to the host as audio
+    again = api.decode_chunked(torch.from_numpy(signal).to(cuda_device), mode, device=cuda_device)
+    assert dataclasses.asdict(again) == dataclasses.asdict(want)
+
+
+@pytest.mark.cuda
+def test_device_ring_on_card_matches_cpu(cuda_device):
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+
+    rng = np.random.default_rng(8)
+    card, host = mr.DeviceRing(3, 384, device=cuda_device), mr.DeviceRing(3, 384, device="cpu")
+    assert card.buf.device.type == "cuda"
+    for l in (100, 384, 500, 7, 300):
+        x = rng.standard_normal((3, l)).astype(np.float32)
+        card.write(torch.from_numpy(x).to(cuda_device) if l % 2 else x)
+        host.write(x)
+        total = host.total_written
+        assert card.total_written == total and torch.equal(card.buf.cpu(), host.buf)
+        for g in (total - 384, total - 200, total - 1):
+            for length in (1, 150, 384):
+                a, b = card.get_range(1, g, length), host.get_range(1, g, length)
+                assert (a is None) == (b is None) and (a is None or np.array_equal(a, b))
+        starts = [total - 384, total - 90, total - 200]
+        assert np.array_equal(card.gather_ranges([2, 0, 1], starts, 90), host.gather_ranges([2, 0, 1], starts, 90))
+
+
+@pytest.mark.cuda
+def test_ring_round_on_card_matches_cpu(cuda_device):
+    """The three dispatch functions out of a ring on the card against the
+    same ring on the CPU: starts and detected flags equal, payload bytes
+    equal."""
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+
+    mode = MODES["QPSK"]
+    p = mode.profile
+    n, k, chunk = 3, 2, 256
+    rng = np.random.default_rng(9)
+    n_sym = framing.num_symbols_for_payload(chunk + 11, mode)
+    cadence = framing.estimate_frame_samples(chunk + 11, mode) + p.silence_pre_chunk(False) + p.silence_post_chunk()
+    frames = framing.build_data_chunk_frames([rng.bytes(chunk) for _ in range(n * k)], 0, mode, device="cpu").numpy()
+    stream = frames.reshape(n, k * cadence) + 0.01 * rng.standard_normal((n, k * cadence)).astype(np.float32)
+    w = -(-(k * cadence + 4 * p.symbol_len + p.fft_size + 2048) // 128) * 128
+    stream = np.pad(stream, ((0, 0), (9000, w - k * cadence))).astype(np.float32)
+    card, host = mr.DeviceRing(n, w + 512, device=cuda_device), mr.DeviceRing(n, w + 512, device="cpu")
+    for off in range(0, stream.shape[1], 4096):
+        card.write(stream[:, off : off + 4096])
+        host.write(stream[:, off : off + 4096])
+    params = np.stack([np.full(n, host.rel(9000), np.int32), np.zeros(n, np.int32), np.full(n, w, np.int32)])
+    reset_launch_counts()
+    got = mr._batch_window_decode_multi_dev(card, params, mode, n_sym, k, cadence, w).cpu().numpy()
+    assert launch_counts()["decode_fused"] == 1
+    want = mr._batch_window_decode_multi_dev(host, params, mode, n_sym, k, cadence, w).numpy()
+    assert np.array_equal(got, want)
+    det, starts, full, _ = mr._classify_round(got, chunk)
+    assert det.all() and full.all()
+    one = mr._batch_window_decode_dev(card, params, mode, n_sym, w).cpu().numpy()
+    assert np.array_equal(one, want[:, 0])
+    pparams = np.stack([params[0], starts[:, 0].astype(np.int32), params[2]])
+    reset_launch_counts()
+    pred = mr._batch_window_decode_pred_dev(card, pparams, mode, n_sym, k, cadence, w).cpu().numpy()
+    assert launch_counts()["decode_fused"] == 0
+    assert np.array_equal(pred, mr._batch_window_decode_pred_dev(host, pparams, mode, n_sym, k, cadence, w).numpy())
+    assert np.array_equal(pred, want)

@@ -9,6 +9,9 @@ Parse result type, crc_valid, bytes, preamble_idx and coarse_idx must be
 equal; fine_metric within 1e-5."""
 
 import dataclasses
+import hashlib
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ from audio_modem_tpu.ops import bits as jbits
 from audio_modem_tpu_torch import api, decoder, framing, phy, sync
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.ops.bits import soft_combine
+from audio_modem_tpu_torch.utils.wav import read_wav
 
 torch.set_num_threads(2)
 
@@ -264,3 +268,54 @@ def test_detect_preamble_xcorr_matches_jax():
 def test_decoder_keeps_tensors_on_their_device():
     with pytest.raises(ValueError):
         api.decode(torch.zeros(40000, device="meta"), "QPSK", device="cpu")
+
+
+GOLDEN = Path(__file__).resolve().parent / "golden"
+GOLDEN_MANIFEST = json.loads((GOLDEN / "manifest.json").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_MANIFEST))
+def test_golden_wav_through_api_decode(name):
+    """Every golden WAV through the decoder: manifest file name and sha256,
+    CRC valid, and the JAX package's preamble_idx and fine_metric."""
+    entry = GOLDEN_MANIFEST[name]
+    mode = MODES[name]
+    signal, rate = read_wav(str(GOLDEN / entry["wav"]))
+    assert rate == 44100 and len(signal) == entry["samples"]
+    result, info = api.decode(signal, mode, device="cpu")
+    assert isinstance(result, framing.LegacyFrame) and result.crc_valid
+    assert result.file_name == entry["file_name"]
+    assert hashlib.sha256(result.data).hexdigest() == entry["sha256"]
+    ref, rinfo = japi.decode(signal, _j(mode))
+    assert ref.crc_valid and ref.data == result.data
+    assert info.preamble_idx == rinfo.preamble_idx
+    assert abs(info.fine_metric - rinfo.fine_metric) < 1e-5
+
+
+@pytest.mark.parametrize(
+    "name, total, tail, error",
+    [
+        ("QPSK", 32768, 586, "Signal too short for CE"),
+        ("QPSK", 32768, 768, "Signal too short for CE"),
+        ("BPSK-NARROW", 49152, 778, "Signal too short for CE"),
+    ],
+)
+def test_preamble_cut_off_at_the_end_of_the_padded_buffer(name, total, tail, error):
+    """A frame whose preamble starts ``tail`` samples before the end of a
+    signal that fills its padded bucket exactly: the refine region reaches
+    past the buffer, where the port reads zeros. It must report the TRUE
+    start. (The JAX package's dynamic_slice shifts the region back there and
+    lands elsewhere, so this input is not held against it.)"""
+    mode = MODES[name]
+    p = mode.profile
+    clean = framing.build_transmit_signal(b"cut" * 40, mode, "t.bin", device="cpu").numpy()
+    pre = p.silence_pre_legacy()
+    rng = np.random.default_rng(1)
+    sig = (1e-3 * rng.standard_normal(total)).astype(np.float32)
+    start = total - tail
+    sig[start:] += clean[pre : pre + tail]
+    assert decoder._bucket_len(total) == total
+    result, info = api.decode(sig, mode, device="cpu")
+    assert isinstance(result, framing.FrameError) and result.error == error
+    assert info is not None and info.preamble_idx == start
+    assert info.fine_metric > 0.99

@@ -15,6 +15,8 @@ import torch
 from audio_modem_tpu_torch import MODES, api, decoder, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
+from audio_modem_tpu_torch.parallel import multi_receiver
+from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
 
 torch.set_num_threads(2)
 
@@ -28,7 +30,8 @@ MODULES = sorted(
 ) + ["chip_smoke"]
 
 ENTRY_POINTS = [
-    (api, "encode_legacy"), (api, "encode_chunked"), (api, "encode"), (api, "decode"),
+    (api, "encode_legacy"), (api, "encode_chunked"), (api, "encode"), (api, "decode"), (api, "decode_chunked"),
+    (runtime_receiver, "StreamingReceiver"), (multi_receiver, "DeviceRing"),
     (decoder, "decode_raw"), (decoder, "decode_signal"), (decoder, "pad_aligned_frame"),
     (decoder, "decode_chunk_frame"),
     (framing, "synthesize_frames"), (framing, "build_data_chunk_frames"), (framing, "synthesize_frame"),
@@ -73,7 +76,10 @@ def test_imports_with_jax_blocked():
 
 def test_no_source_imports_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    for new in ("native.py", "runtime/ring.py", "runtime/assembler.py", "runtime/receiver.py",
+                "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py"):
+        assert PACKAGE / new in files and f"audio_modem_tpu_torch.{new[:-3].replace('/', '.')}" in MODULES
     assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
 
 

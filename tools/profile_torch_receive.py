@@ -21,8 +21,16 @@ Then the turbo round
 (``_batch_window_decode_multi``, 64 streams x 32 frames): its time from
 CUDA events without the profiler (median of ``--reps``), and the device
 time of its kernels and copies per round under the profiler; their ratio
-is the share of the round in which the card is busy. Prints the card's
-name and power limit first. Needs a CUDA device.
+is the share of the round in which the card is busy. Then the device ring
+(``profile_ring``): a block write and the cut of the round's windows at
+[64, 2 x 914,688], for ``DeviceRing`` (a true ring) and for the alternative
+it was chosen over, a ping-pong shift buffer kept in this file only to be
+measured. Last the chunked receive (``profile_chunked``): a 1 MiB QPSK file
+through ``api.decode_chunked`` as chip_smoke.py sends it: the wall split
+into scan / refine / frame decode / assembler / ingest on the host's clock,
+then under the profiler the device time, its share of the wall (the card's
+busy share), device events per 4096-sample block and the largest device
+items. Prints the card's name and power limit first. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from audio_modem_tpu_torch import MODES, decoder, framing  # noqa: E402
+from audio_modem_tpu_torch import MODES, api, decoder, framing  # noqa: E402
 from audio_modem_tpu_torch.kernels import receive  # noqa: E402
 from audio_modem_tpu_torch.parallel import multi_receiver  # noqa: E402
 from audio_modem_tpu_torch.tables import profile_tables  # noqa: E402
@@ -111,6 +119,111 @@ def profile_round(windows, n_valid, min_pos, mode, n_sym: int, cadence: int, rep
         print(f"  {name[:100]}: {us / reps / 1e3:.4f} ms per round ({n / reps:g} events)")
 
 
+class ShiftRing:
+    """The device ring as a ping-pong shift buffer: ``buf[:, 0]`` is always
+    the oldest sample, so a window is one contiguous slice per row, and
+    every write copies the kept samples into the second buffer (an
+    overlapping copy within one buffer is undefined in PyTorch). Not part
+    of the port: ``DeviceRing`` is measured against it."""
+
+    def __init__(self, n: int, capacity: int, device):
+        self.buf = torch.zeros((n, capacity), dtype=torch.float32, device=device)
+        self.other = torch.empty_like(self.buf)
+
+    def write(self, blocks: torch.Tensor) -> None:
+        l = blocks.shape[1]
+        keep = self.buf.shape[1] - l
+        self.other[:, :keep].copy_(self.buf[:, l:])
+        self.other[:, keep:].copy_(blocks)
+        self.buf, self.other = self.other, self.buf
+
+    def windows(self, rel_starts: list, w: int) -> torch.Tensor:
+        if len(set(rel_starts)) == 1:  # lockstep: one strided copy, as _ring_gather makes
+            return self.buf[:, rel_starts[0] : rel_starts[0] + w].contiguous()
+        out = torch.empty((self.buf.shape[0], w), dtype=torch.float32, device=self.buf.device)
+        for i, r in enumerate(rel_starts):
+            out[i].copy_(self.buf[i, r : r + w])
+        return out
+
+
+def profile_ring(dev, w: int, reps: int) -> None:
+    """Block writes and the window cut at [64, 2 * w], both ring designs in
+    turns (CUDA events, median of ``reps``)."""
+    n = chip_smoke.N_STREAMS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(chip_smoke.SEED)
+    ring = multi_receiver.DeviceRing(n, 2 * w, device=dev)
+    shift = ShiftRing(n, ring.capacity, dev)
+    fill = torch.randn((n, w), generator=gen, device=dev)
+    for r in (ring, shift):
+        r.write(fill)
+        r.write(fill)
+        r.write(fill[:, : w // 2 + 4096])  # the true ring's write position now sits mid-buffer
+    early = [16 * (i % 8) for i in range(n)]  # windows from the oldest samples: contiguous in the true ring
+    late = [w - 4096 + s for s in early]  # windows up to the newest samples: they cross its buffer's end
+    cases = (("staggered starts, contiguous", early, False), ("staggered starts, wrapping", late, True),
+             ("one start (lockstep), contiguous", [0] * n, False), ("one start (lockstep), wrapping", [w] * n, True))
+    for label, rel, wraps in cases:
+        pos = (ring.total_written + rel[0]) % ring.capacity
+        if (pos + w > ring.capacity) != wraps:
+            raise SystemExit("profile_torch_receive: FAILED: the ring's write position is not where this expects")
+        cut_true = lambda: multi_receiver._ring_gather(ring, range(n), rel, w)  # noqa: E731
+        cut_shift = lambda: shift.windows(rel, w)  # noqa: E731
+        if not torch.equal(cut_true(), cut_shift()):
+            raise SystemExit("profile_torch_receive: FAILED: the two rings disagree on their windows")
+        a1, b1, b2, a2 = (chip_smoke.time_ms(f, reps=reps) for f in (cut_true, cut_shift, cut_shift, cut_true))
+        print(f"device ring [{n}, {ring.capacity}], cut of [{n}, {w}] windows, {label}: true ring {a1:.4f}, {a2:.4f} ms; "
+              f"shift ring {b1:.4f}, {b2:.4f} ms")
+    for block in (4096, 65536):
+        blk = fill[:, :block].contiguous()
+        a1, b1, b2, a2 = (chip_smoke.time_ms(f, reps=reps) for f in (
+            lambda: ring.write(blk), lambda: shift.write(blk), lambda: shift.write(blk), lambda: ring.write(blk)))
+        print(f"device ring [{n}, {ring.capacity}], write of a [{n}, {block}] block: true ring {a1:.4f}, {a2:.4f} ms; "
+              f"shift ring {b1:.4f}, {b2:.4f} ms")
+
+
+def profile_chunked(dev) -> None:
+    """The 1 MiB QPSK chunked receive: host-clock split, then device time
+    and events under the profiler."""
+    import time
+
+    data = np.random.default_rng(chip_smoke.SEED + 12).bytes(1 << 20)
+    signal = np.concatenate(chip_smoke.chunked_frames(data, "QPSK", "config3.bin", dev))
+    n_blocks = -(-len(signal) // 4096)
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        res = api.decode_chunked(signal, "QPSK", device=dev)
+        wall = time.perf_counter() - t0
+        if not (isinstance(res, api.ChunkedDecodeResult) and res.complete and res.data == data):
+            raise SystemExit("profile_torch_receive: FAILED: the chunked receive did not return the file")
+        return wall
+
+    run()  # warm-up
+    with chip_smoke.receiver_stages() as timer:
+        wall = run()
+    split = chip_smoke.stage_split(timer, wall)
+    print(f"chunked receive, 1 MiB QPSK ({len(signal)} samples, {n_blocks} blocks of 4096): wall {wall:.3f} s "
+          f"(host clock, stage timer on, no profiler)")
+    for stage in ("scan", "refine", "frame"):
+        print(f"  {stage}: {split[stage + '_s']:.3f} s = {split[stage + '_s'] / wall:.1%} of the wall, "
+              f"{split[stage + '_calls']} calls, {split[stage + '_ms']:.3f} ms each")
+    print(f"  assembler: {split['assembler_s']:.3f} s = {split['assembler_s'] / wall:.1%}; ingest (DC removal, ring "
+          f"write, FSM): {split['ingest_s']:.3f} s = {split['ingest_s'] / wall:.1%}")
+    plain_wall = run()
+    events = device_events(run, 1)
+    dev_ms = sum(us for _, us, _ in events) / 1e3
+    n_ev = sum(n for _, _, n in events)
+    busy = f"{dev_ms / 1e3 / plain_wall:.1%}" if dev_ms > 0 else "not measured (the profiler saw no device time)"
+    print(f"  wall without timer or profiler {plain_wall:.3f} s; device time {dev_ms:.1f} ms in {n_ev} device events "
+          f"= {n_ev / n_blocks:.1f} per block (torch.profiler); device busy {busy}")
+    for name, us, n in sorted(events, key=lambda r: -r[1])[:8]:
+        print(f"  {name[:100]}: {us / 1e3:.2f} ms in {n} events")
+    for name, us, n in events:
+        if "stream_demod_kernel" in name:
+            print(f"  stream_demod_kernel alone: {us / n / 1e3:.4f} ms of device time per launch ({n} launches seen)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -153,6 +266,9 @@ def main() -> None:
                  lambda: receive.decode_chunks_fused_stream(fr_n, mode_n, ns_n), reps)
     dft_yardsticks("the 64 narrowband frames", fr_n[:, 3 * mode_n.profile.symbol_len :], mode_n, ns_n, reps)
     profile_round(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
+    profile_ring(dev, windows.shape[1], reps)
+    del windows, frames
+    profile_chunked(dev)
 
 
 if __name__ == "__main__":
