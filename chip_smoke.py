@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full size: the turbo receive round (64 QPSK
+Drives the port's paths at full size: the turbo receive round (64 QPSK
 streams, 2048-byte chunks, 32 frames per round; BASELINE config 5), the
 single-signal decode (api.encode -> api.decode of a 32,736-byte file as one
 BPSK-REPEAT legacy frame of 7,906,500 samples under 12 dB AWGN; BASELINE
-config 2) and the chunked-file receive (api.encode_chunked ->
+config 2), the chunked-file receive (api.encode_chunked ->
 api.decode_chunked of a 1 MiB file in QPSK, 513 frames, 14.6 M samples;
-BASELINE config 3). Phases, one line each:
+BASELINE config 3) and the multi-stream runtime (BatchReceiver, 64 QPSK
+streams fed in lockstep blocks of 65,536 samples; BASELINE config 5).
+Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
   2. build the CUDA kernels from audio_modem_tpu_torch/csrc
@@ -61,9 +63,32 @@ BASELINE config 3). Phases, one line each:
      ring's write and gather ms
  16. the retry ladder's timing tracker: api.decode(track_timing=True) of the
      32,736-byte QPSK frame, exact bytes, wall ms
+ 17. BatchReceiver, host-fed: a seeded file of 4 chunks per stream into 64
+     streams as host numpy blocks, through the staged machine (scan,
+     refine, kernel B) and again with window_decode=True (kernel A); one
+     warm pass, then one timed pass of each: all 64 complete and exact,
+     decode_chunks_fused launched in the staged run; wall, Msamples/s,
+     launches; kernels A and B against their plain versions (phase 4's and
+     5's checks) on the first input of each shape the warm passes gave them
+ 18. BatchReceiver, device ingest, steady state: 128 chunks per stream
+     (3.68 M samples, 235 M stream-samples), blocks cut on the card as
+     broadcast slices of one signal, ring [64, 3,597,568], K = 8,
+     pipeline_depth 8: all 64 complete and exact, decode_fused launched,
+     predicted rounds carry at least the scanned rounds' samples,
+     speculative fetches happened; wall, Msamples/s, real-time streams,
+     the receiver's stage split and launches; then the same transfer at
+     pipeline_depth 0, exact, its wall beside depth 8's. Then rows that
+     differ: 8 seeded files of 64 chunks, stream i carrying file i % 8
+     behind 3,001 * i samples of noise; a warm and a timed pass, each
+     stream's own file exact, wall and stage split, and the [64, 232,320]
+     window cut out of the ring for lockstep and for staggered rows. Kernel
+     A against its plain version on the first input of each shape the warm
+     passes gave it (the startup windows [64, 65,536] at max_syms 110, slot
+     0 of the scanned K-rounds at [64, 232,320], the shorter tail rounds)
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13 and 15, each counted from zero, the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+the paths of phases 6, 9, 12, 13, 15, 17 and 18, each counted from zero,
+the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, from this run's shapes, each DFT counted at the cost
 of a real-input FFT), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. There is no
@@ -81,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -193,7 +219,7 @@ def config2_signal(dev):
     import numpy as np
     import torch
 
-    from audio_modem_tpu_torch import MODES, api
+    from audio_modem_tpu_torch import MODES, api, channel
 
     mode = MODES["BPSK-REPEAT"]
     data = np.random.default_rng(SEED + 2).bytes(32 * 1024 - 32)
@@ -202,8 +228,7 @@ def config2_signal(dev):
         fail(f"config 2 TX: {len(sigs)} frames of {[int(x.shape[0]) for x in sigs]} samples")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    noise_power = (sigs[0] * sigs[0]).mean() / (10.0 ** (12.0 / 10.0))
-    return mode, data, sigs[0] + torch.randn(sigs[0].shape, generator=gen, device=dev) * torch.sqrt(noise_power)
+    return mode, data, channel.apply_channel(sigs[0], channel.ChannelSpec(snr_db=12.0), gen)
 
 
 @contextlib.contextmanager
@@ -438,13 +463,309 @@ def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536)
                 f"Msamples/s; window gather {t_gather:.3f} ms, block write {t_write:.4f} ms")
 
 
-def compare_receive(label: str, out: dict, ref: dict, n_valid, mode) -> tuple[float, float, int, int]:
-    """Kernel A's output dict against its plain version: start, coarse,
-    coarse metric and detected equal, fine metric within 1e-5, channel within
-    1e-4, no flipped bit in the symbols inside n_valid. Returns (fine err,
-    channel err, flipped bits, in-frame bits)."""
+STREAM_BLOCK = 65536  # BatchReceiver's lockstep block and scan bucket in phases 17-18
+
+
+def config5_signal(n_chunks: int, seed: int, dev):
+    """A seeded file of ``n_chunks`` 2048-byte chunks as one QPSK chunked
+    transmission synthesized on ``dev``: (file bytes, signal on ``dev``)."""
+    import numpy as np
     import torch
 
+    from audio_modem_tpu_torch import MODES, api
+
+    data = np.random.default_rng(seed).bytes(MODES["QPSK"].chunk_size * n_chunks)
+    return data, torch.cat(list(api.encode_chunked(data, "QPSK", "b.bin", device=dev)))
+
+
+def feed_batch(rx, blocks) -> float:
+    """Every block into ``rx``, then ``flush``; returns the host wall in s."""
+    import torch
+
+    t0 = time.perf_counter()
+    for b in blocks:
+        rx.process_blocks(b)
+    rx.flush()
+    if rx.device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_batch(label: str, rx, want: list) -> None:
+    """Every stream of ``rx`` complete with the bytes ``want[i]``."""
+    for i, r in enumerate(rx.results()):
+        if not (r["complete"] and r["data"] == want[i]):
+            fail(f"{label}: stream {i} {'exact' if r['data'] == want[i] else 'differs'}, missing "
+                 f"{r['missing'][:8]}, {r['stats']}")
+
+
+@contextlib.contextmanager
+def path_inputs(store: dict, tag: str):
+    """While the block runs, keep a copy of the first input of each shape
+    that the batched path hands kernels A and B (``batch.decode_fused`` and
+    ``batch.decode_chunks_fused``, looked up at call time) in ``store``,
+    keyed by (kernel, tag, shape, symbols). The kernels run as they would;
+    ``check_path_inputs`` holds them to their plain versions afterwards."""
+    from audio_modem_tpu_torch.parallel import batch
+
+    real_a, real_b = batch.decode_fused, batch.decode_chunks_fused
+
+    def record_a(signals, n_valid, min_pos, mode, max_syms):
+        key = ("decode_fused", tag, tuple(signals.shape), max_syms)
+        if key not in store:
+            store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
+        return real_a(signals, n_valid, min_pos, mode, max_syms)
+
+    def record_b(frames, mode, n_sym):
+        key = ("decode_chunks_fused", tag, tuple(frames.shape), n_sym)
+        if key not in store:
+            store[key] = (frames.clone(), mode)
+        return real_b(frames, mode, n_sym)
+
+    batch.decode_fused, batch.decode_chunks_fused = record_a, record_b
+    try:
+        yield store
+    finally:
+        batch.decode_fused, batch.decode_chunks_fused = real_a, real_b
+
+
+def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
+    """Kernels A and B against their plain versions on every input that
+    ``path_inputs`` kept: A by ``compare_receive(by_frame=True)``, B by equal
+    bits over the frame's symbols. Returns (largest fine or channel error, a report)."""
+    import torch
+
+    from audio_modem_tpu_torch.kernels import receive
+    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+
+    err, parts = 0.0, []
+    for (name, tag, shape, n_sym), args in store.items():
+        where = f"{list(shape)} {'max_syms' if name == 'decode_fused' else 'n_sym'} {n_sym} ({tag})"
+        if name == "decode_fused":
+            sig, n_valid, min_pos, mode = args
+            out = receive.decode_fused(sig, n_valid, min_pos, mode, n_sym)
+            ref = receive.decode_fused_reference(sig, n_valid, min_pos, mode, n_sym)
+            e_fine, e_ch, flips, n_in, by_kind = compare_receive(
+                f"{label}: kernel A at {where}", out, ref, n_valid, mode, by_frame=True)
+            err = max(err, e_fine, e_ch)
+            parts.append(f"A at {where}: {int(out['detected'].sum())} of {shape[0]} detected, every detected "
+                         f"row parses as the plain version's, fine err {e_fine:.3e}, ch err {e_ch:.3e}, flipped "
+                         f"bits {flips} of {n_in} ({by_kind})")
+        else:
+            frames, mode = args
+            nb = n_sym * bits_per_symbol(mode)
+            out = receive.decode_chunks_fused(frames, mode, n_sym)[:, :nb].to(torch.int32)
+            ref = receive.decode_chunks_fused_reference(frames, mode, n_sym)[:, :nb].to(torch.int32)
+            flips = int((out != ref).sum().item())
+            if flips:
+                fail(f"{label}: kernel B at {where} flips {flips} bits against its plain version")
+            parts.append(f"B at {where}: flipped bits {flips} of {out.numel()}")
+    return err, "; ".join(parts)
+
+
+def batch_receive_host(dev, n: int = N_STREAMS, n_chunks: int = 4, block: int = STREAM_BLOCK) -> tuple[Counter, str]:
+    """Phase 17: ``n_chunks`` chunks a stream into ``n`` streams as host numpy
+    blocks, through the staged machine and through the turbo machine
+    (window_decode); a warm pass, then a timed one with launch counts from
+    zero. Kernels A and B are held to their plain versions on the first input
+    of each shape the warm passes gave them. Returns (launches of the timed
+    passes, kernel A's largest fine or channel error, a report line)."""
+    import numpy as np
+
+    from audio_modem_tpu_torch import MODES
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.parallel.multi_receiver import BatchReceiver
+
+    mode = MODES["QPSK"]
+    data, sig = config5_signal(n_chunks, SEED + 17, dev)
+    want = [data] * n
+    host = sig.cpu().numpy()
+    blocks = []
+    for off in range(0, len(host), block):
+        buf = np.zeros((n, block), np.float32)
+        seg = host[off : off + block]
+        buf[:, : len(seg)] = seg[None, :]
+        blocks.append(buf)
+    total = Counter()
+    parts = []
+    inputs: dict = {}
+    for label, tag, kw in (("staged", "staged", {}), ("turbo (window_decode)", "turbo", {"window_decode": True})):
+        warm = BatchReceiver(mode, n, scan_bucket=block, device=dev, **kw)
+        with path_inputs(inputs, tag):
+            feed_batch(warm, blocks)
+        check_batch(f"host-fed {label}, warm pass", warm, want)
+        reset_launch_counts()
+        rx = BatchReceiver(mode, n, scan_bucket=block, device=dev, **kw)
+        wall = feed_batch(rx, blocks)
+        counts = launch_counts()
+        check_batch(f"host-fed {label}", rx, want)
+        if not kw and counts["decode_chunks_fused"] < 1:
+            fail(f"host-fed staged: decode_chunks_fused never launched: {counts}")
+        total.update(counts)
+        parts.append(f"{label} wall {wall:.3f} s = {n * len(host) / wall / 1e6:.2f} Msamples/s, launches {counts}")
+    if not {("decode_chunks_fused", "staged"), ("decode_fused", "turbo")} <= {k[:2] for k in inputs}:
+        fail(f"host-fed: kernel inputs recorded only at {sorted(k[:3] for k in inputs)}")
+    err, checked = check_path_inputs("host-fed", inputs)
+    return total, err, (f"{n} streams x {len(host)} samples ({n_chunks} chunks + metadata, {len(blocks)} blocks of "
+                        f"{block}) -> {n} exact files in each mode; " + "; ".join(parts)
+                        + f"; against the plain versions at every shape of the warm passes: {checked}")
+
+
+def stage_report(rep: dict) -> str:
+    """``timer.report()`` as 'stage seconds/calls' pairs, largest first."""
+    return ", ".join(f"{k} {v['seconds']:.4f} s/{v['calls']}"
+                     for k, v in sorted(rep.items(), key=lambda kv: -kv[1]["seconds"]))
+
+
+def config5_device_blocks(dev, n: int = N_STREAMS, n_chunks: int = 128, block: int = STREAM_BLOCK):
+    """Phase 18's input: a seeded file of ``n_chunks`` chunks synthesized on
+    ``dev``, cut into [n, block] blocks that broadcast the one signal to every
+    stream (no copy per stream). Returns (file bytes, samples a stream,
+    blocks)."""
+    import torch
+
+    data, sig = config5_signal(n_chunks, SEED + 18, dev)
+    t = sig.shape[0]
+    padded = torch.nn.functional.pad(sig, (0, -(-t // block) * block - t))
+    return data, t, [padded[off : off + block].expand(n, block) for off in range(0, padded.shape[0], block)]
+
+
+def config5_staggered_blocks(dev, n: int = N_STREAMS, n_files: int = 8, n_chunks: int = 64,
+                             block: int = STREAM_BLOCK):
+    """Streams whose rows differ: ``n_files`` seeded files of ``n_chunks``
+    chunks synthesized on ``dev``; stream i carries file i % n_files behind
+    3,001 * i samples of seeded noise at 0.002, so no two streams start
+    together. Returns (each stream's file bytes, its lead, samples a stream,
+    [n, block] blocks)."""
+    import torch
+
+    files = [config5_signal(n_chunks, SEED + 180 + j, dev) for j in range(n_files)]
+    leads = [3001 * i for i in range(n)]
+    t = max(lead + files[i % n_files][1].shape[0] for i, lead in enumerate(leads))
+    rows = torch.zeros((n, -(-t // block) * block), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    for i, lead in enumerate(leads):
+        sig = files[i % n_files][1]
+        rows[i, :lead] = torch.randn(lead, generator=gen, device=dev) * 0.002
+        rows[i, lead : lead + sig.shape[0]] = sig
+    blocks = [rows[:, off : off + block] for off in range(0, rows.shape[1], block)]
+    return [files[i % n_files][0] for i in range(n)], leads, t, blocks
+
+
+def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: int = STREAM_BLOCK):
+    """Phase 18: the device-ingest steady state. ``n_chunks`` chunks a stream,
+    blocks cut on ``dev`` as broadcast slices of one signal, default K = 8;
+    a warm pass, a timed pass at pipeline_depth 8 and one at depth 0, each
+    with launch counts from zero. Then rows that differ
+    (``config5_staggered_blocks``): a warm pass and a timed one, every
+    stream's own file exact, and the ring's window cut for staggered rows
+    timed beside the lockstep cut. Kernel A is held to its plain version on
+    the first input of each shape that the two warm passes gave it. Returns
+    (launches of the timed passes, kernel A's largest fine or channel error,
+    a report line, depth 8's stage report, depth 8's and depth 0's walls)."""
+    from audio_modem_tpu_torch import MODES
+    from audio_modem_tpu_torch.configs import SAMPLE_RATE
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.parallel.multi_receiver import BatchReceiver, _ring_gather
+
+    mode = MODES["QPSK"]
+    data, t, blocks = config5_device_blocks(dev, n, n_chunks, block)
+    want = [data] * n
+    samples = n * t
+
+    def receiver(depth: int):
+        return BatchReceiver(mode, n, scan_bucket=block, device_ingest=True, pipeline_depth=depth, device=dev)
+
+    inputs: dict = {}
+    warm = receiver(8)
+    with path_inputs(inputs, "broadcast"):
+        feed_batch(warm, blocks)
+    check_batch("device ingest, warm pass", warm, want)
+    ring, k = tuple(warm.dring.buf.shape), warm.frames_per_round
+    del warm
+    total = Counter()
+    walls = {}
+    for depth in (8, 0):
+        reset_launch_counts()
+        rx = receiver(depth)
+        walls[depth] = feed_batch(rx, blocks)
+        counts = launch_counts()
+        check_batch(f"device ingest, pipeline_depth {depth}", rx, want)
+        rep = rx.timer.report()
+        if depth:
+            if counts["decode_fused"] < 1:
+                fail(f"device ingest: decode_fused never launched: {counts}")
+            pred = rep.get("pred_dispatch", {}).get("samples", 0)
+            if pred < max(rep.get("multi_dispatch", {}).get("samples", 0), 1):
+                fail(f"device ingest: predicted rounds carried {pred} samples, scanned rounds more: {rep}")
+            if "pipe_fetch" not in rep:
+                fail(f"device ingest: no speculative fetch at pipeline_depth 8: {rep}")
+            rep8, counts8 = rep, counts
+        elif "pipe_fetch" in rep:
+            fail("device ingest: a speculative fetch at pipeline_depth 0")
+        total.update(counts)
+        del rx
+    del blocks
+    # rows that differ: each stream its own file and start
+    files, leads, t_s, blocks_s = config5_staggered_blocks(dev, n, block=block)
+    warm = receiver(8)
+    with path_inputs(inputs, "staggered"):
+        feed_batch(warm, blocks_s)
+    check_batch("device ingest, staggered rows, warm pass", warm, files)
+    del warm
+    reset_launch_counts()
+    rx = receiver(8)
+    wall_s = feed_batch(rx, blocks_s)
+    counts_s = launch_counts()
+    check_batch("device ingest, staggered rows", rx, files)
+    if counts_s["decode_fused"] < 1:
+        fail(f"device ingest, staggered rows: decode_fused never launched: {counts_s}")
+    total.update(counts_s)
+    rep_s = rx.timer.report()
+    if not {("decode_fused", "broadcast"), ("decode_fused", "staggered")} <= {k_[:2] for k_ in inputs}:
+        fail(f"device ingest: kernel inputs recorded only at {sorted(k_[:3] for k_ in inputs)}")
+    # the widest window kernel A was given: slot 0 of a scanned K-round
+    w = max(k_[2][1] for k_ in inputs if k_[0] == "decode_fused")
+    t_lock = time_ms(lambda: _ring_gather(rx.dring, range(n), [0] * n, w))
+    t_stag = time_ms(lambda: _ring_gather(rx.dring, range(n), leads, w))
+    del rx, blocks_s
+    err, checked = check_path_inputs("device ingest", inputs)
+    msps = samples / walls[8] / 1e6
+    line = (f"{n} streams x {t} samples ({n_chunks} chunks + metadata, {t / SAMPLE_RATE:.1f} s of audio; {samples} "
+            f"stream-samples; {-(-t // block)} broadcast blocks of {block}), ring {list(ring)}, K = {k}: {n} exact "
+            f"files at pipeline_depth 8 and 0; depth 8 wall {walls[8]:.3f} s = "
+            f"{msps:.2f} Msamples/s = {msps * 1e6 / SAMPLE_RATE:.0f} real-time streams; depth 0 wall {walls[0]:.3f} s "
+            f"= {samples / walls[0] / 1e6:.2f} Msamples/s; launches at depth 8 {counts8}; stages at depth 8 (host "
+            f"clock): {stage_report(rep8)}; staggered rows ({len(set(files))} files of "
+            f"{len(files[0]) // mode.chunk_size} chunks, "
+            f"stream i behind {leads[1]} * i samples of noise, {t_s} samples a stream): {n} exact files, depth 8 wall "
+            f"{wall_s:.3f} s = {n * t_s / wall_s / 1e6:.2f} Msamples/s, launches {counts_s}, stages "
+            f"{stage_report(rep_s)}; window cut [{n}, {w}] out of the ring: lockstep {t_lock:.3f} ms, staggered "
+            f"{t_stag:.3f} ms; against the plain versions at every shape of the warm passes: {checked}")
+    return total, err, line, rep8, walls
+
+
+def compare_receive(label: str, out: dict, ref: dict, n_valid, mode, by_frame: bool = False):
+    """Kernel A's output dict against its plain version: start, coarse,
+    coarse metric and detected equal, fine metric within 1e-5, channel within
+    1e-4, and no flipped bit in the symbols inside n_valid.
+
+    ``by_frame`` is for a live runtime's windows, where a detected row may
+    be a false detection (a noise edge) whose channel is estimated from
+    silence, so its hard decisions rest on rounding: the bits are then held
+    as the runtime reads them. Each detected row's bytes must parse to the
+    same frame as the plain version's, or both must fail to parse (the
+    runtime then hands the frame to the staged machine, which re-reads the
+    samples); a CRC-valid frame is thus bit for bit the plain version's.
+    Flipped bits are counted by kind of row and reported.
+
+    Returns (fine err, channel err, flipped bits, bits inside n_valid, a
+    report of the flips by kind of row)."""
+    import torch
+
+    from audio_modem_tpu_torch import decoder, framing
+    from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 
     for key in ("start", "coarse", "coarse_metric", "detected"):
@@ -456,14 +777,36 @@ def compare_receive(label: str, out: dict, ref: dict, n_valid, mode) -> tuple[fl
     sym = mode.profile.symbol_len
     bps_sym = bits_per_symbol(mode)
     n_sym_max = out["bits"].shape[1] // bps_sym
-    flips = n_in = 0
-    for i, (s, nv) in enumerate(zip(out["start"].tolist(), n_valid.tolist())):
+    starts = out["start"].tolist()
+    per_row = []  # (flipped bits, bits inside n_valid)
+    for i, (s, nv) in enumerate(zip(starts, n_valid.tolist())):
         nb = min(max((nv - (s + 3 * sym)) // sym, 0), n_sym_max) * bps_sym
-        flips += int((out["bits"][i, :nb] != ref["bits"][i, :nb]).sum().item())
-        n_in += nb
-    if err_fine > 1e-5 or err_ch > 1e-4 or flips:
+        per_row.append((int((out["bits"][i, :nb] != ref["bits"][i, :nb]).sum().item()), nb))
+    flips, n_in = sum(f for f, _ in per_row), sum(n for _, n in per_row)
+    if err_fine > 1e-5 or err_ch > 1e-4 or (flips and not by_frame):
         fail(f"{label} outside tolerance: fine err {err_fine:.3e}, ch err {err_ch:.3e}, flipped bits {flips}")
-    return err_fine, err_ch, flips, n_in
+    if not by_frame:
+        return err_fine, err_ch, flips, n_in, ""
+
+    def parsed(bits) -> list:
+        by = bits_to_bytes(majority_vote(bits, mode.repetition) if mode.repetition > 1 else bits).cpu().numpy()
+        return [framing.parse_payload_bytes(row.tobytes(), min_len=6) for row in by]
+
+    got, want = parsed(out["bits"]), parsed(ref["bits"])
+    kinds: dict = {}
+    flipped = []
+    for i, det in enumerate(out["detected"].tolist()):
+        failed = decoder._parse_failed(want[i])
+        if det and got[i] != want[i] and not (failed and decoder._parse_failed(got[i])):
+            fail(f"{label}: row {i} (start {starts[i]}) decodes to {got[i]!r:.120} against plain {want[i]!r:.120}")
+        kind = "undetected" if not det else "no frame" if failed else type(want[i]).__name__
+        f, n = per_row[i]
+        k = kinds.setdefault(kind, [0, 0, 0])
+        k[0], k[1], k[2] = k[0] + 1, k[1] + f, k[2] + n
+        if f:
+            flipped.append(f"{i} ({kind}, start {starts[i]}, {f})")
+    report = ", ".join(f"{kind} {r} rows {f} of {n}" for kind, (r, f, n) in kinds.items())
+    return err_fine, err_ch, flips, n_in, f"{report}; rows with flips: {', '.join(flipped[:12]) or 'none'}"
 
 
 def main() -> None:
@@ -519,7 +862,7 @@ def main() -> None:
     torch.cuda.synchronize()
     if not bool(ka["detected"].all()):
         fail("kernel A: not every stream detected")
-    err_fine, err_ch, flips, n_in = compare_receive("kernel A", ka, pa, n_valid, mode)
+    err_fine, err_ch, flips, n_in, _ = compare_receive("kernel A", ka, pa, n_valid, mode)
     print(f"phase 4 kernel A vs plain: start/coarse/coarse metric/detected equal, fine err {err_fine:.3e} "
           f"(tol 1e-5), ch err {err_ch:.3e} (tol 1e-4), flipped in-frame bits {flips} of {n_in}", flush=True)
 
@@ -659,7 +1002,7 @@ def main() -> None:
     torch.cuda.synchronize()
     if not bool(ka_1["detected"][0]):
         fail("kernel A at B = 1: config 2 not detected")
-    err_fine_1, err_ch_1, flips_1, n_in_1 = compare_receive("kernel A at B = 1", ka_1, pl, nv2, mode2)
+    err_fine_1, err_ch_1, flips_1, n_in_1, _ = compare_receive("kernel A at B = 1", ka_1, pl, nv2, mode2)
     print(f"phase 9 kernel A vs plain at B = 1 on config 2 ({padded2.shape[0]} samples, max_syms {ms2}): "
           f"start/coarse/coarse metric/detected equal, fine err {err_fine_1:.3e} (tol 1e-5), ch err "
           f"{err_ch_1:.3e} (tol 1e-4), flipped in-frame bits {flips_1} of {n_in_1}", flush=True)
@@ -758,18 +1101,31 @@ def main() -> None:
           f"{len(data3)} exact bytes; wall {statistics.median(walls16):.1f} ms (runs "
           f"{', '.join(f'{w:.1f}' for w in walls16)})", flush=True)
 
+    # 17. BatchReceiver, host-fed (staged and turbo)
+    launches17, err17, line = batch_receive_host(dev)
+    print(f"phase 17 BatchReceiver host-fed {card}: {line}", flush=True)
+
+    # 18. BatchReceiver, device ingest, steady state
+    launches18, err18, line, _, _ = batch_receive_device(dev)
+    print(f"phase 18 BatchReceiver device ingest {card}: {line}", flush=True)
+
+    batch_launches = launches17 + launches18
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
-         "replaces": "audio_modem_tpu/kernels/receive.py:375", "launches": counts["decode_fused"] + ring_launches,
-         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1), "ms": ms_a, "plain_ms": plain_ms_a,
+         "replaces": "audio_modem_tpu/kernels/receive.py:375",
+         "launches": counts["decode_fused"] + ring_launches + batch_launches["decode_fused"],
+         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18), "ms": ms_a,
+         "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,
-         "replaces": "audio_modem_tpu/kernels/receive.py:604", "launches": counts["decode_chunks_fused"],
+         "replaces": "audio_modem_tpu/kernels/receive.py:604",
+         "launches": counts["decode_chunks_fused"] + batch_launches["decode_chunks_fused"],
          "max_abs_err": float(err_b), "ms": ms_b, "plain_ms": plain_ms_b,
          "bound_ms": bound_b[0], "bound_by": bound_b[1], "library_ms": None},
         {"name": "stream_demod", "route": "cuda", "source": source,
-         "replaces": "audio_modem_tpu/kernels/receive.py:666, :728", "launches": stream_launches,
+         "replaces": "audio_modem_tpu/kernels/receive.py:666, :728",
+         "launches": stream_launches + batch_launches["stream_demod"],
          "max_abs_err": float(err_s), "ms": ms_s, "plain_ms": plain_ms_s,
          "bound_ms": bound_s[0], "bound_by": bound_s[1], "library_ms": None},
     ]}))

@@ -3,7 +3,8 @@ numpy signals: api.decode / decoder.decode_signal through every rung of the
 retry ladder (clean frames, soft repetition combining, FEC erasures from
 EVM, xcorr re-acquisition, timing tracking), decode_chunk_frame, the
 single-frame TX within 3e-5, and the phy / sync / bits tools the ladder
-uses. Noise and clock drift come from the JAX package's channel module.
+uses. Noise and clock drift come from the port's channel module, and
+both packages decode the same samples.
 
 Parse result type, crc_valid, bytes, preamble_idx and coarse_idx must be
 equal; fine_metric within 1e-5."""
@@ -13,19 +14,18 @@ import hashlib
 import json
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from audio_modem_tpu import api as japi
-from audio_modem_tpu import channel, phy as jphy, sync as jsync
+from audio_modem_tpu import phy as jphy, sync as jsync
 from audio_modem_tpu import decoder as jdecoder
 from audio_modem_tpu import framing as jframing
 from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu.ops import bits as jbits
-from audio_modem_tpu_torch import api, decoder, framing, phy, sync
+from audio_modem_tpu_torch import api, channel, decoder, framing, phy, sync
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.ops.bits import soft_combine
 from audio_modem_tpu_torch.utils.wav import read_wav
@@ -70,14 +70,14 @@ def test_clean_legacy_frame(name):
 
 
 def test_soft_retry_rescues_bpsk_repeat():
-    """JAX-made AWGN at -1 dB on the data region (seed 9) breaks the hard
+    """AWGN at -1 dB on the data region (seed 17) breaks the hard
     majority vote; the soft combining retry recovers the frame."""
     mode = MODES["BPSK-REPEAT"]
     p = mode.profile
     payload = np.random.default_rng(42).bytes(96)
     sig = np.array(jframing.build_transmit_signal(payload, _j(mode), "f.bin"))
     d0 = p.silence_pre_legacy() + 3 * p.symbol_len
-    sig[d0:] = np.asarray(channel.awgn(jnp.asarray(sig[d0:]), -1.0, jax.random.PRNGKey(9)))
+    sig[d0:] = channel.apply_channel_np(sig[d0:], channel.ChannelSpec(snr_db=-1.0), seed=17, device="cpu")
     raw, info = decoder.decode_raw(sig, mode, device="cpu")
     assert info is not None and decoder._parse_failed(framing.parse_payload_bytes(raw))
     result, info = _same_decode(sig, mode)
@@ -96,8 +96,8 @@ def test_fec_frame_rescued_by_evm_erasures():
     clean = np.asarray(jframing.build_transmit_signal(payload, _j(mode), "e.bin", fec=True))
     ours = framing.build_transmit_signal(payload, mode, "e.bin", fec=True, device="cpu")
     assert np.abs(ours.numpy() - clean).max() < 3e-5
-    # 30 dB of JAX-made noise gives the Schmidl-Cox plateau a definite peak
-    sig = channel.apply_channel_np(clean, channel.ChannelSpec(snr_db=30.0), seed=4)
+    # 30 dB of noise gives the Schmidl-Cox plateau a definite peak
+    sig = channel.apply_channel_np(clean, channel.ChannelSpec(snr_db=30.0), seed=4, device="cpu")
     _, info = _same_decode(sig, mode)
     s0 = info.preamble_idx + 8 * sym
     for burst in (np.zeros(3 * sym, np.float32), rng.normal(0, 0.3, 3 * sym).astype(np.float32)):
@@ -117,7 +117,7 @@ def test_xcorr_reacquisition():
     mode = MODES["BPSK-REPEAT"]
     payload = np.random.default_rng(42).bytes(96)
     sig = np.asarray(jframing.build_transmit_signal(payload, _j(mode), "f.bin"))
-    noisy = channel.apply_channel_np(sig, channel.ChannelSpec(snr_db=3.0), seed=0)
+    noisy = channel.apply_channel_np(sig, channel.ChannelSpec(snr_db=3.0), seed=0, device="cpu")
     result, info = _same_decode(noisy, mode)
     assert isinstance(result, framing.LegacyFrame) and result.data == payload
     assert info.coarse_idx == -1 and info.preamble_idx > 10000
@@ -129,9 +129,12 @@ def test_tracked_decode_at_200ppm():
     mode = MODES["BPSK-ACOUSTIC"]
     data = np.random.default_rng(11).bytes(5200)
     sig = japi.encode_legacy(data, _j(mode), "d.bin")
-    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=200.0, snr_db=25.0), seed=3)
+    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=200.0, snr_db=25.0), seed=3, device="cpu")
     result, _ = _same_decode(drifted, mode, track_timing=True)
     assert isinstance(result, framing.LegacyFrame) and result.crc_valid and result.data == data
+    # the input needs the tracked rung: without it the frame fails its CRC
+    untracked, _ = api.decode(drifted, mode, device="cpu")
+    assert not (isinstance(untracked, framing.LegacyFrame) and untracked.crc_valid)
 
 
 def test_decode_errors_match():
@@ -155,7 +158,7 @@ def test_decode_chunk_frame(name, snr, seed):
     payload = np.random.default_rng(7).bytes(64)
     frame = jframing.build_data_chunk_frame(payload, 3, _j(mode))[mode.profile.silence_pre_chunk(False) :]
     if snr is not None:
-        frame = channel.apply_channel_np(np.asarray(frame), channel.ChannelSpec(snr_db=snr), seed=seed)
+        frame = channel.apply_channel_np(np.asarray(frame), channel.ChannelSpec(snr_db=snr), seed=seed, device="cpu")
     ref = jdecoder.decode_chunk_frame(frame, _j(mode))
     ours = decoder.decode_chunk_frame(frame, mode, device="cpu")
     _same_result(ours, ref)
@@ -240,7 +243,7 @@ def test_demodulate_tracked_matches_jax():
     p = mode.profile
     sym = p.symbol_len
     sig = japi.encode_legacy(np.random.default_rng(4).bytes(1500), jmode, "d.bin")
-    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=150.0, snr_db=30.0), seed=1)
+    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=150.0, snr_db=30.0), seed=1, device="cpu")
     start = p.silence_pre_legacy()
     n_sym = (len(drifted) - start - 3 * sym) // sym
     ext = np.pad(drifted, (0, 8192))
@@ -256,7 +259,7 @@ def test_detect_preamble_xcorr_matches_jax():
     mode = MODES["QPSK"]
     p = mode.profile
     sig = japi.encode_legacy(b"x" * 200, _j(mode), "x.bin")
-    noisy = channel.apply_channel_np(sig, channel.ChannelSpec(snr_db=5.0), seed=2)
+    noisy = channel.apply_channel_np(sig, channel.ChannelSpec(snr_db=5.0), seed=2, device="cpu")
     n = len(noisy)
     pre = jsync.preprocess(jnp.asarray(noisy), jnp.int32(n))
     ji, jm = jsync.detect_preamble_xcorr(pre, _j(mode).profile, jnp.int32(n))

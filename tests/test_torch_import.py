@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, decoder, framing
+from audio_modem_tpu_torch import MODES, api, channel, decoder, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
 from audio_modem_tpu_torch.parallel import multi_receiver
@@ -31,7 +31,8 @@ MODULES = sorted(
 
 ENTRY_POINTS = [
     (api, "encode_legacy"), (api, "encode_chunked"), (api, "encode"), (api, "decode"), (api, "decode_chunked"),
-    (runtime_receiver, "StreamingReceiver"), (multi_receiver, "DeviceRing"),
+    (runtime_receiver, "StreamingReceiver"), (multi_receiver, "DeviceRing"), (multi_receiver, "BatchReceiver"),
+    (channel, "apply_channel_np"),
     (decoder, "decode_raw"), (decoder, "decode_signal"), (decoder, "pad_aligned_frame"),
     (decoder, "decode_chunk_frame"),
     (framing, "synthesize_frames"), (framing, "build_data_chunk_frames"), (framing, "synthesize_frame"),
@@ -78,9 +79,22 @@ def test_no_source_imports_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 25
     for new in ("native.py", "runtime/ring.py", "runtime/assembler.py", "runtime/receiver.py",
-                "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py"):
+                "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py", "channel.py",
+                "parallel/multi_receiver.py"):
         assert PACKAGE / new in files and f"audio_modem_tpu_torch.{new[:-3].replace('/', '.')}" in MODULES
     assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
+
+
+def test_card_only_tests_import_nothing_of_jax():
+    """tests/test_torch_cuda.py runs on a machine that has the port but not
+    JAX: it imports neither ``jax`` nor the JAX package."""
+    path = ROOT / "tests" / "test_torch_cuda.py"
+    assert _imports_of_jax_package(path) == []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            assert not [a.name for a in node.names if a.name == "jax" or a.name.startswith("jax.")], node.lineno
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert not (node.module == "jax" or (node.module or "").startswith("jax.")), node.lineno
 
 
 @pytest.mark.parametrize("module, name", ENTRY_POINTS, ids=[f"{m.__name__.split('.')[-1]}.{n}" for m, n in ENTRY_POINTS])
@@ -104,6 +118,21 @@ def test_decode_without_device_raises_without_a_card():
         decoder.decode_chunk_frame(sig, MODES["QPSK"])
     result, info = api.decode(sig, "QPSK", device="cpu")
     assert isinstance(result, framing.FrameError) and info is None
+
+
+def test_receiver_and_channel_raise_without_a_card():
+    """BatchReceiver and apply_channel_np run on the card unless given the
+    CPU; without a card they raise, they never run on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multi_receiver.BatchReceiver(MODES["QPSK"], 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multi_receiver.BatchReceiver(MODES["QPSK"], 2, device_ingest=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        channel.apply_channel_np(np.zeros(64, np.float32), channel.ChannelSpec(snr_db=10.0))
+    rx = multi_receiver.BatchReceiver(MODES["QPSK"], 2, device="cpu")
+    assert rx.device.type == "cpu"
 
 
 def test_tf32_is_off():

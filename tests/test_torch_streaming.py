@@ -1,8 +1,7 @@
 """The port's StreamingReceiver and api.decode_chunked against the JAX
 package's on the same audio blocks (device="cpu"): chunked transfers clean,
 behind noise, with dropouts and bursts, two files in a row, under clock
-drift and with FEC. Noise and drift come from the JAX package's channel
-module.
+drift and with FEC. Noise and drift come from the port's channel module.
 
 Equal: every frame's refined preamble position, kind and sequence number,
 the stream counters, missing chunks, CRC errors and the file bytes. The
@@ -17,11 +16,10 @@ import pytest
 import torch
 
 from audio_modem_tpu import api as japi
-from audio_modem_tpu import channel
 from audio_modem_tpu import framing as jframing
 from audio_modem_tpu.configs import MODES as JMODES
 from audio_modem_tpu.runtime import receiver as jreceiver
-from audio_modem_tpu_torch import api, framing
+from audio_modem_tpu_torch import api, channel, framing
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.runtime import receiver
 
@@ -144,7 +142,7 @@ def test_dropout_burst_loses_only_affected_chunks(monkeypatch):
     frames = _frames(data, "QPSK", "drop.bin")
     start = sum(len(f) for f in frames[:2])
     spec = channel.ChannelSpec(dropout=((start, len(frames[2])),))  # chunk 1's frame
-    damaged = channel.apply_channel_np(np.concatenate(frames), spec)
+    damaged = channel.apply_channel_np(np.concatenate(frames), spec, device="cpu")
     rx, _, _ = _both(monkeypatch, "QPSK", damaged)
     assert rx.assembler.missing_chunks() == [1]
     out = rx.assembler.assemble()
@@ -182,7 +180,7 @@ def test_chunked_transfer_under_clock_drift(monkeypatch, ppm):
     mode = MODES["QPSK"]
     data = np.random.default_rng(19).bytes(mode.chunk_size * 5 + 100)  # 6 data frames
     sig = np.concatenate(_frames(data, "QPSK", "d.bin", batch=8))
-    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=ppm))
+    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=ppm), device="cpu")
     rx, _, files = _both(monkeypatch, "QPSK", drifted)
     assert rx.assembler.is_complete and files == {"d.bin": data}
 
@@ -196,7 +194,7 @@ def test_fec_transfer_with_a_burst(monkeypatch):
     rng = np.random.default_rng(7)
     data = rng.bytes(mode.chunk_size + 60)  # 2 chunks
     frames = _frames(data, name, "fec.bin", fec=True)
-    sig = np.array(channel.apply_channel_np(np.concatenate(frames), channel.ChannelSpec(snr_db=25.0), seed=5))
+    sig = np.array(channel.apply_channel_np(np.concatenate(frames), channel.ChannelSpec(snr_db=25.0), seed=5, device="cpu"))
     hit = len(frames[0]) + mode.profile.silence_pre_chunk(False) + 12 * sym
     sig[hit : hit + 2 * sym] = 0.0
     rx, events, files = _both(monkeypatch, name, sig, fec=True)

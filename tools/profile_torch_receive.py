@@ -30,13 +30,21 @@ through ``api.decode_chunked`` as chip_smoke.py sends it: the wall split
 into scan / refine / frame decode / assembler / ingest on the host's clock,
 then under the profiler the device time, its share of the wall (the card's
 busy share), device events per 4096-sample block and the largest device
-items. Prints the card's name and power limit first. Needs a CUDA device.
+items. Last the multi-stream runtime (``profile_batch_receiver``): chip_smoke
+phase 18's transfer (64 streams x 128 chunks through
+``BatchReceiver(device_ingest=True)``, K = 8, pipeline_depth 8): its wall
+and stage split on the host's clock, then under the profiler the device
+time, the card's busy share, device events per round and the largest device
+items; before the profiler, the same transfer at pipeline_depth 8, 1 and 0
+in turns (six walls each). ``--only batch_receiver`` runs that part alone. Prints the card's
+name and power limit first. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -224,16 +232,67 @@ def profile_chunked(dev) -> None:
             print(f"  stream_demod_kernel alone: {us / n / 1e3:.4f} ms of device time per launch ({n} launches seen)")
 
 
+def profile_batch_receiver(dev) -> None:
+    """Phase 18's device-ingest transfer: host-clock wall and stage split,
+    then device time, busy share and events per round under the profiler."""
+    from audio_modem_tpu_torch.parallel.multi_receiver import BatchReceiver
+
+    n, block = chip_smoke.N_STREAMS, chip_smoke.STREAM_BLOCK
+    data, t, blocks = chip_smoke.config5_device_blocks(dev, n, 128, block)
+
+    def receiver(depth: int = 8):
+        return BatchReceiver(MODES["QPSK"], n, scan_bucket=block, device_ingest=True, pipeline_depth=depth,
+                             device=dev)
+
+    def run(rx) -> float:
+        wall = chip_smoke.feed_batch(rx, blocks)
+        chip_smoke.check_batch("profile_batch_receiver", rx, [data] * n)
+        return wall
+
+    run(receiver())  # warm-up
+    rx = receiver()
+    wall = run(rx)
+    rep = rx.timer.report()
+    kinds = [f"{k} {rep[k]['calls']}" for k in ("pred_dispatch", "multi_dispatch", "single_dispatch") if k in rep]
+    rounds = sum(rep.get(f"{k}_dispatch", {}).get("calls", 0) for k in ("pred", "multi", "single"))
+    print(f"BatchReceiver device ingest [{n} streams x {t} samples, {len(blocks)} blocks of {block}]: wall "
+          f"{wall:.3f} s = {n * t / wall / 1e6:.2f} Msamples/s (host clock, no profiler); {rounds} rounds "
+          f"({', '.join(kinds)})")
+    print(f"  stages: {chip_smoke.stage_report(rep)}")
+    # before the profiler: launches may stay slower once it has run
+    walls = {depth: [] for depth in (8, 1, 0)}
+    for order in ((8, 1, 0), (0, 1, 8)) * 3:
+        for depth in order:
+            walls[depth].append(run(receiver(depth)))
+    print("  pipeline_depth in turns, wall s: " + "; ".join(
+        f"{depth}: median {statistics.median(w):.3f} ({', '.join(f'{x:.3f}' for x in w)})"
+        for depth, w in walls.items()))
+    rx = receiver()
+    events = device_events(lambda: run(rx), 1)
+    dev_ms = sum(us for _, us, _ in events) / 1e3
+    n_ev = sum(cnt for _, _, cnt in events)
+    busy = f"{dev_ms / 1e3 / wall:.1%}" if dev_ms > 0 else "not measured (the profiler saw no device time)"
+    print(f"  device time {dev_ms:.1f} ms in {n_ev} device events = {n_ev / max(rounds, 1):.0f} per round "
+          f"(torch.profiler); device busy {busy} of the wall without the profiler")
+    for name, us, cnt in sorted(events, key=lambda r: -r[1])[:8]:
+        print(f"  {name[:100]}: {us / 1e3:.2f} ms in {cnt} events")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    reps = ap.parse_args().reps
+    ap.add_argument("--only", choices=["all", "batch_receiver"], default="all")
+    args = ap.parse_args()
+    reps = args.reps
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_receive: FAILED: torch.cuda.is_available() is False")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     dev = torch.device("cuda", 0)
+    if args.only == "batch_receiver":
+        profile_batch_receiver(dev)
+        return
     rng = np.random.default_rng(chip_smoke.SEED)
     mode, frames, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(dev, rng)
     profile_call("kernel A, turbo slot 0 [64, 914688]",
@@ -269,6 +328,7 @@ def main() -> None:
     profile_ring(dev, windows.shape[1], reps)
     del windows, frames
     profile_chunked(dev)
+    profile_batch_receiver(dev)
 
 
 if __name__ == "__main__":
