@@ -15,6 +15,12 @@ to find:
   framing    payload codecs (host), single and batched frame synthesis (device)
   decoder    single-signal and chunk-frame decode with the retry ladder
   api        encode / decode entry points
+  channel    channel simulator (AWGN, multipath, clock drift, dropout)
+  runtime/   streaming receiver, chunk assembly, live PCM ingest, audio devices
+  utils/     WAV I/O, metrics, logging, tracing, plots
+  diag       test signals, loopback analysis, BER curves
+  arq        selective-repeat retransmission, one stream or many
+  cli        the command line
   kernels/   hand-written CUDA kernels, each beside its plain PyTorch version
   parallel/  batched multi-stream decode and the turbo receive round
 
@@ -23,9 +29,10 @@ wire format's host modules (``configs``, ``ops.lcg``, ``ops.crc32``,
 ``ops.rs``); tests/test_torch_configs.py holds them equal to the originals,
 so the wire format keeps one definition in effect.
 
-Entry points (``api``, ``decoder``, the ``framing`` builders) run on the
-card unless the caller passes ``device="cpu"``; without a CUDA device a call
-that does not name the CPU raises.
+Entry points (``api``, ``decoder``, the ``framing`` builders, the receivers,
+``diag``, ``arq``, ``runtime.ingest``) run on the card unless the caller
+passes ``device="cpu"`` (the CLI: ``--torch-device cpu``); without a CUDA
+device a call that does not name the CPU raises.
 
 Everything runs in float32. TF32 is off for matrix products and
 convolutions: the plain reference must not round to ~3 decimal digits.

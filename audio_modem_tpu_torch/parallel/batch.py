@@ -7,7 +7,7 @@ VMEM gate, and kernel A grids its stages over tiles and streams. A single
 signal (B = 1) takes the decoder's route, ``decode_long_fused`` (see
 ``decoder._core_dispatch``). The frame-aligned demod goes through
 kernel B. The cadence-predicted decode (refine + CE + demod) is plain
-PyTorch.
+PyTorch, and so is the AWGN loopback step (``batch_loopback_step``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch.channel import awgn
 from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fused
 # The plain receive pipeline (counterpart of _batch_decode_signals_xla) is
@@ -23,6 +24,7 @@ from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fu
 from audio_modem_tpu_torch.kernels.receive import decode_fused_reference as _batch_decode_signals_plain  # noqa: F401
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+from audio_modem_tpu_torch.tables import profile_tables
 
 
 def batch_decode_chunk_frames(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
@@ -79,6 +81,26 @@ def batch_decode_predicted(
         "detected": fine >= sync.XCORR_THRESHOLD,
         "bits": phy.demodulate(data, ch_re, ch_im, mode),
     }
+
+
+def batch_loopback_step(
+    bits: torch.Tensor, generator: torch.Generator, mode: ModemMode, n_sym: int, snr_db: float = 20.0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full TX -> AWGN -> RX loopback over a stream batch, reduced to a
+    scalar BER, on the device of ``bits``: modulate, prepend the CE symbol,
+    add noise drawn from ``generator`` (``channel.awgn``), estimate the
+    channel, demodulate. Plain PyTorch, as the JAX package runs it in XLA.
+
+    bits: [B, n_sym * bits_per_symbol] in {0,1}. Returns (BER, out_bits)."""
+    p = mode.profile
+    syms = phy.modulate(bits, mode)  # [B, n_sym, sym_len]
+    sig = syms.reshape(syms.shape[0], -1)
+    ce = profile_tables(p, bits.device).header[2 * p.symbol_len :].expand(sig.shape[0], p.symbol_len)
+    rx = awgn(torch.cat([ce, sig], dim=-1), snr_db, generator)
+    ch_re, ch_im = phy.estimate_channel(rx[:, : p.symbol_len], p)
+    out_bits = phy.demodulate(rx[:, p.symbol_len :].reshape(-1, n_sym, p.symbol_len), ch_re, ch_im, mode)
+    ber = (out_bits.to(torch.float32) - bits.to(torch.float32)).abs().mean()
+    return ber, out_bits
 
 
 def pad_signals(signals: "list[np.ndarray]", pad_len: int | None = None) -> tuple[np.ndarray, np.ndarray]:

@@ -1,1 +1,2 @@
-"""Streaming runtime: ring buffer, receiver FSM, chunk assembly."""
+"""Streaming runtime: ring buffer, receiver FSM, chunk assembly, live PCM
+ingest and audio devices."""

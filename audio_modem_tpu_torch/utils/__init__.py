@@ -1,1 +1,1 @@
-"""Host utilities: WAV I/O, metrics, logging, tracing."""
+"""Host utilities: WAV I/O, metrics, logging, tracing, plots."""

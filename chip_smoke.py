@@ -10,7 +10,9 @@ BPSK-REPEAT legacy frame of 7,906,500 samples under 12 dB AWGN; BASELINE
 config 2), the chunked-file receive (api.encode_chunked ->
 api.decode_chunked of a 1 MiB file in QPSK, 513 frames, 14.6 M samples;
 BASELINE config 3) and the multi-stream runtime (BatchReceiver, 64 QPSK
-streams fed in lockstep blocks of 65,536 samples; BASELINE config 5).
+streams fed in lockstep blocks of 65,536 samples; BASELINE config 5), and
+the application layer on top of them (the CLI, play | listen over a pipe,
+single-stream and 64-stream selective-repeat ARQ, the BER curve).
 Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
@@ -85,9 +87,30 @@ Phases, one line each:
      A against its plain version on the first input of each shape the warm
      passes gave it (the startup windows [64, 65,536] at max_syms 110, slot
      0 of the scanned K-rounds at [64, 232,320], the shorter tail rounds)
+ 19. the application layer: the port's CLI (cli.main in this process, on
+     the card by default) with launch counts from zero before each
+     subcommand: encode -> decode of a seeded 32,736-byte file (one QPSK
+     legacy frame), encode -> receive of the 1 MiB file of phase 12 (513
+     frames), play --no-pace of it into an os.pipe with listen on the other
+     end in f32 and s16 (real-time factor printed), testsignal -> diagnose
+     (detected, ber 0, excellent), diagnose --live through a channel of
+     20 dB SNR, 100 ppm drift and a 50-sample echo (detected), sweep, info;
+     every file exact, stream_demod launched at least once per frame
+ 20. selective-repeat ARQ: arq.run_arq_session of the 1 MiB file with every
+     20th data-chunk frame zeroed in round 1 (exact, round 2 resends the
+     26 dropped chunks and only them); arq.run_batch_arq_session of 64
+     seeded 16-chunk files (config 5's widths, cut in depth) through one
+     BatchReceiver with one chunk frame zeroed on every even stream in
+     round 1 (64 exact files, even streams resend one chunk, kernel B
+     launched); diag.ber_vs_snr of 64 x 64 QPSK symbols (0 at 30 dB, no
+     rise beyond noise as the SNR grows); walls per round. Then kernel B
+     and the streaming demod against their plain versions on the first
+     input of each shape phases 19-20 gave them: B bit for bit, the
+     streaming demod bit for bit on every symbol that carries signal (its
+     junk symbols, constant or past the signal's end, reported apart)
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15, 17 and 18, each counted from zero,
+the paths of phases 6, 9, 12, 13, 15, 17, 18, 19 and 20, each counted from zero,
 the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, from this run's shapes, each DFT counted at the cost
 of a real-input FFT), and as the last line
@@ -503,12 +526,16 @@ def check_batch(label: str, rx, want: list) -> None:
 def path_inputs(store: dict, tag: str):
     """While the block runs, keep a copy of the first input of each shape
     that the batched path hands kernels A and B (``batch.decode_fused`` and
-    ``batch.decode_chunks_fused``, looked up at call time) in ``store``,
-    keyed by (kernel, tag, shape, symbols). The kernels run as they would;
+    ``batch.decode_chunks_fused``) and that the decoder hands the streaming
+    demod (``decoder.stream_demod``, and ``receive.stream_demod`` under
+    ``decode_long_fused``), each looked up at call time, in ``store``, keyed
+    by (kernel, tag, shape, symbols). The kernels run as they would;
     ``check_path_inputs`` holds them to their plain versions afterwards."""
+    from audio_modem_tpu_torch import decoder
+    from audio_modem_tpu_torch.kernels import receive
     from audio_modem_tpu_torch.parallel import batch
 
-    real_a, real_b = batch.decode_fused, batch.decode_chunks_fused
+    real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
 
     def record_a(signals, n_valid, min_pos, mode, max_syms):
         key = ("decode_fused", tag, tuple(signals.shape), max_syms)
@@ -522,17 +549,27 @@ def path_inputs(store: dict, tag: str):
             store[key] = (frames.clone(), mode)
         return real_b(frames, mode, n_sym)
 
+    def record_s(data, ch_re, ch_im, scale, mode, n_sym):
+        key = ("stream_demod", tag, tuple(data.shape), n_sym)
+        if key not in store:
+            store[key] = (data.clone(), ch_re.clone(), ch_im.clone(), scale.clone(), mode)
+        return real_s(data, ch_re, ch_im, scale, mode, n_sym)
+
     batch.decode_fused, batch.decode_chunks_fused = record_a, record_b
+    receive.stream_demod = decoder.stream_demod = record_s
     try:
         yield store
     finally:
         batch.decode_fused, batch.decode_chunks_fused = real_a, real_b
+        receive.stream_demod = decoder.stream_demod = real_s
 
 
 def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
-    """Kernels A and B against their plain versions on every input that
-    ``path_inputs`` kept: A by ``compare_receive(by_frame=True)``, B by equal
-    bits over the frame's symbols. Returns (largest fine or channel error, a report)."""
+    """Kernels A and B and the streaming demod against their plain versions on
+    every input that ``path_inputs`` kept: A by
+    ``compare_receive(by_frame=True)``, B by equal bits over the frame's
+    symbols, the streaming demod by equal bits over its whole output. Returns
+    (largest fine or channel error, a report)."""
     import torch
 
     from audio_modem_tpu_torch.kernels import receive
@@ -551,6 +588,29 @@ def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
             parts.append(f"A at {where}: {int(out['detected'].sum())} of {shape[0]} detected, every detected "
                          f"row parses as the plain version's, fine err {e_fine:.3e}, ch err {e_ch:.3e}, flipped "
                          f"bits {flips} of {n_in} ({by_kind})")
+        elif name == "stream_demod":
+            data, ch_re, ch_im, scale, mode = args
+            out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
+            ref = receive.stream_demod_reference(data, ch_re, ch_im, scale, mode, n_sym)
+            # Every symbol that carries signal must give equal bits. The others are junk that no
+            # caller reads, as phase 9 leaves them out: a symbol that reaches into the zeros past
+            # the signal's end (the front end zeroes samples past n_valid; a frame is padded with
+            # zeros), or whose samples are all equal (silence after the DC removal). Their data
+            # bins hold rounding residue, so a decision there is a tie that rounding breaks.
+            sym = mode.profile.symbol_len
+            x = torch.nn.functional.pad(data[:, : n_sym * sym], (0, max(n_sym * sym - data.shape[1], 0)))
+            ends = torch.arange(1, x.shape[1] + 1, device=x.device) * (x != 0)
+            inside = torch.arange(1, n_sym + 1, device=x.device) * sym <= ends.amax(-1, keepdim=True)
+            x = x.reshape(shape[0], n_sym, sym)
+            carry = inside & ~(x == x[..., :1]).all(-1)
+            flipped = (out != ref).reshape(shape[0], n_sym, -1)
+            flips, junk = int(flipped[carry].sum().item()), int(flipped[~carry].sum().item())
+            if flips or out.shape != ref.shape:
+                fail(f"{label}: stream_demod at {where} flips {flips} bits against its plain version")
+            parts.append(f"stream_demod at {where} {mode.name}: flipped bits {flips} of "
+                         f"{int(flipped[carry].numel())} in the {int(carry.sum().item())} symbols that carry "
+                         f"signal; {junk} of {int(flipped[~carry].numel())} in {int((~carry).sum().item())} junk "
+                         f"symbols (constant, or past the signal's end)")
         else:
             frames, mode = args
             nb = n_sym * bits_per_symbol(mode)
@@ -746,6 +806,283 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
     return total, err, line, rep8, walls
 
 
+class CliRun:
+    """``cli.main`` of the port in this process, so the launch counters see
+    its work, on its default compute device, the card. Use inside
+    ``capture()``."""
+
+    def __init__(self):
+        self.out = self.err = None
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Standard output into a byte buffer (play and listen use
+        ``sys.stdout.buffer``), standard error into a string."""
+        import io
+
+        self.out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8", write_through=True)
+        self.err = io.StringIO()
+        with contextlib.redirect_stdout(self.out), contextlib.redirect_stderr(self.err):
+            yield self
+
+    def __call__(self, *argv: str) -> tuple[str, float]:
+        """Run one subcommand; it must exit 0. Returns (its stdout, wall s)."""
+        from audio_modem_tpu_torch import cli
+
+        start = len(self.out.buffer.getvalue())
+        t0 = time.perf_counter()
+        rc = cli.main(list(argv))
+        wall = time.perf_counter() - t0
+        text = self.out.buffer.getvalue()[start:].decode()
+        if rc != 0:
+            fail(f"cli {' '.join(argv)}: exit {rc}: {text[-300:]} {self.err.getvalue()[-300:]!r}")
+        return text, wall
+
+    def piped(self, play_args: list, listen_args: list) -> tuple[str, float]:
+        """``play ... | listen ...`` as a shell runs it, over one ``os.pipe``:
+        play on a thread writes its standard output into the write end, listen
+        here reads its standard input from the read end; both must exit 0.
+        Returns (listen's stdout, its wall s)."""
+        import io
+        import os
+        import threading
+
+        from audio_modem_tpu_torch import cli
+
+        r, w = os.pipe()
+        sink = io.TextIOWrapper(os.fdopen(w, "wb"), encoding="utf-8")
+        failed = []
+
+        def writer():
+            try:
+                # the sink "-" right after the input: argparse in Python 3.12.3 takes no optional
+                # positional after options
+                rc = cli.main([*play_args[:2], "-", *play_args[2:]])
+                if rc != 0:
+                    failed.append(f"exit {rc}")
+            except (Exception, SystemExit) as e:  # reported on the main thread, which fails the run
+                failed.append(repr(e))
+            finally:
+                sys.stdout = self.out  # listen prints its result after the end of the stream
+                sink.close()
+
+        real_stdin = sys.stdin
+        sys.stdin = io.TextIOWrapper(os.fdopen(r, "rb"), encoding="utf-8")
+        sys.stdout = sink
+        t = threading.Thread(target=writer)
+        t.start()
+        try:
+            text, wall = self(listen_args[0], "-", *listen_args[1:])
+        finally:
+            sys.stdin.close()  # a writer still blocked on a full pipe gets EPIPE
+            sys.stdin = real_stdin
+            t.join(timeout=120)
+        if failed or t.is_alive():
+            fail(f"cli play into a pipe: {failed[0] if failed else 'still running'}: {self.err.getvalue()[-300:]!r}")
+        return text, wall
+
+
+def cli_phase(store: dict, small: bytes, big: bytes, n_big_frames: int) -> tuple[Counter, str]:
+    """Phase 19: the port's CLI, every subcommand but bench, launch counts from
+    zero before each and read after it: encode -> decode of ``small`` (one
+    legacy QPSK frame), encode -> receive of ``big`` (chunked, ``n_big_frames``
+    frames), play --no-pace of ``big`` into a pipe with listen on the other
+    end in f32 and in s16, testsignal -> diagnose, diagnose --live through a
+    channel, sweep and info. Files must come back exact and ``stream_demod``
+    launch at least once per frame decoded. Returns (launches, a report line)."""
+    import re
+
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    run = CliRun()
+    total = Counter()
+    parts = []
+
+    def counted(label: str, least: int, call, *args) -> tuple[str, float]:
+        reset_launch_counts()
+        text, wall = call(*args)
+        counts = launch_counts()
+        if counts["stream_demod"] < least:
+            fail(f"cli {label}: stream_demod launched {counts['stream_demod']} times, fewer than {least}")
+        total.update(counts)
+        return text, wall
+
+    with tempfile.TemporaryDirectory() as tmp, path_inputs(store, "cli"), run.capture():
+        d = Path(tmp)
+        (d / "small.bin").write_bytes(small)
+        (d / "big.bin").write_bytes(big)
+
+        def exact(name: str, want: bytes, label: str) -> None:
+            if (d / name).read_bytes() != want:
+                fail(f"cli {label}: {name} differs from what was sent")
+
+        _, t_enc_s = counted("encode", 0, run, "encode", str(d / "small.bin"), str(d / "s.wav"))
+        _, t_dec = counted("decode", 1, run, "decode", str(d / "s.wav"), "-o", str(d / "s.out"))
+        exact("s.out", small, "decode")
+        _, t_enc_b = counted("encode", 0, run, "encode", str(d / "big.bin"), str(d / "b.wav"))
+        text, t_rx = counted("receive", n_big_frames, run, "receive", str(d / "b.wav"), "-o", str(d / "b.out"))
+        exact("b.out", big, "receive")
+        if "[complete]" not in text:
+            fail(f"cli receive: {text.strip()}")
+        parts.append(f"encode {len(small)} bytes {t_enc_s:.3f} s, decode {t_dec:.3f} s (exact); encode "
+                     f"{len(big)} bytes {t_enc_b:.3f} s, receive {t_rx:.3f} s (exact, {n_big_frames} frames)")
+        for pcm in ("f32", "s16"):
+            text, t_listen = counted(
+                f"play | listen {pcm}", n_big_frames, run.piped,
+                ["play", str(d / "big.bin"), "--no-pace", "--pcm", pcm],
+                ["listen", "-o", str(d / f"l_{pcm}.out"), "--pcm", pcm])
+            exact(f"l_{pcm}.out", big, f"play | listen {pcm}")
+            rtf = re.search(r"([0-9.]+)x realtime", text)
+            if "[complete]" not in text or rtf is None:
+                fail(f"cli listen {pcm}: {text.strip()}")
+            parts.append(f"play --no-pace | listen {pcm}: exact, wall {t_listen:.3f} s, realtime_factor "
+                         f"{rtf.group(1)}")
+        counted("testsignal", 0, run, "testsignal", str(d / "ts.wav"))
+        text, t_diag = counted("diagnose", 0, run, "diagnose", str(d / "ts.wav"))
+        rep = json.loads(text.strip().splitlines()[-1])
+        if not (rep["detected"] and rep["ber"] == 0 and rep["quality"] == "excellent"):
+            fail(f"cli diagnose of the test signal: {rep}")
+        spec = "snr=20,ppm=100,echo=50:0.3"
+        text, t_live = counted("diagnose --live", 0, run, "diagnose", "--live", "--channel", spec)
+        live = json.loads(text.strip().splitlines()[-1])
+        if not live["detected"]:
+            fail(f"cli diagnose --live --channel {spec}: {live}")
+        counted("sweep", 0, run, "sweep", str(d / "sw.wav"))
+        text, _ = counted("info", 0, run, "info")
+        parts.append(f"diagnose of testsignal {t_diag:.3f} s (detected, ber 0, excellent); diagnose --live "
+                     f"--channel {spec} {t_live:.3f} s (detected, ber {live['ber']}, snr {live['snr_db']} dB, "
+                     f"{live['quality']}); sweep and info exit 0 ({len(text.splitlines()) - 1} modes)")
+    return total, "; ".join(parts)
+
+
+def arq_phase(dev, store: dict, big: bytes, n_streams: int = N_STREAMS, n_chunks: int = 16,
+              n_sym: int = 64) -> tuple[Counter, str]:
+    """Phase 20: selective-repeat ARQ and the loopback curve on ``dev``, launch
+    counts from zero before each session. ``arq.run_arq_session`` of ``big``
+    with every 20th data-chunk frame zeroed in round 1: complete and exact in
+    two or more rounds, the first request naming exactly the dropped chunks
+    and round 2 resending only them. ``arq.run_batch_arq_session`` of
+    ``n_streams`` seeded files of ``n_chunks`` chunks (config 5's widths)
+    with one chunk frame killed on every even stream in round 1: every
+    stream exact, even streams resend one chunk, kernel B launched. Then
+    ``diag.ber_vs_snr`` over ``n_streams`` x ``n_sym`` QPSK symbols: 0 at
+    30 dB and rising with falling SNR by no more than noise. Returns
+    (launches, a report line)."""
+    import numpy as np
+
+    from audio_modem_tpu_torch import MODES, arq, diag, framing
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    mode = MODES["QPSK"]
+    cs = mode.chunk_size
+    total = Counter()
+    parts = []
+
+    def frame_lens(n_chunk: int, size: int, name: str) -> tuple[int, int]:
+        meta = framing.build_metadata_frame(n_chunk, size, cs, name, mode, device=dev).shape[0]
+        return meta, framing.build_data_chunk_frame(bytes(cs), 0, mode, device=dev).shape[0]
+
+    def round_walls(starts: list, end: float) -> str:
+        return ", ".join(f"{b - a:.3f}" for a, b in zip(starts, starts[1:] + [end]))
+
+    # one stream, 1 MiB, every 20th chunk frame lost in round 1
+    n_total = -(-len(big) // cs)
+    meta_len, chunk_len = frame_lens(n_total, len(big), "arq.bin")
+    dropped = list(range(0, n_total, 20))
+    stamps = []
+
+    def forward(sig):
+        stamps.append(time.perf_counter())
+        if len(stamps) == 1:
+            sig = sig.copy()
+            for s in dropped:
+                sig[meta_len + s * chunk_len : meta_len + (s + 1) * chunk_len] = 0.0
+        return sig
+
+    requests = []
+    real_request = arq.build_request_frame
+
+    def record_request(missing, mode_, device="cuda"):
+        requests.append(list(missing))
+        return real_request(missing, mode_, device)
+
+    arq.build_request_frame = record_request
+    try:
+        with path_inputs(store, "arq"):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = arq.run_arq_session(big, mode, "arq.bin", forward, device=dev)
+            t_end = time.perf_counter()
+            counts = launch_counts()
+    finally:
+        arq.build_request_frame = real_request
+    total.update(counts)
+    if not (rep.complete and rep.data == big and rep.file_name == "arq.bin" and rep.rounds >= 2):
+        fail(f"arq session: complete {rep.complete}, exact {rep.data == big}, rounds {rep.rounds}")
+    if rep.chunks_sent_per_round[:2] != [n_total, len(dropped)] or requests[0] != dropped:
+        fail(f"arq session: sent {rep.chunks_sent_per_round}, first request {requests[0][:8]}..., "
+             f"dropped {dropped[:8]}...")
+    if counts["stream_demod"] < n_total + 1:
+        fail(f"arq session: stream_demod launched {counts['stream_demod']} times for {n_total + 1} frames")
+    parts.append(f"run_arq_session {len(big)} bytes, {len(dropped)} of {n_total} chunk frames zeroed in round 1: "
+                 f"exact in {rep.rounds} rounds, chunks sent {rep.chunks_sent_per_round}, first request = the "
+                 f"dropped chunks, wall {t_end - t0:.3f} s (rounds {round_walls([t0] + stamps[1:], t_end)}), "
+                 f"launches {counts}")
+
+    # config 5's widths over the batched runtime: n_streams x n_chunks, one frame lost on every even stream
+    rng = np.random.default_rng(SEED + 20)
+    datas = [rng.bytes(cs * n_chunks) for _ in range(n_streams)]
+    names = [f"s{i:02d}.bin" for i in range(n_streams)]
+    meta_b, chunk_b = frame_lens(n_chunks, cs * n_chunks, names[0])
+    seen = [0] * n_streams
+    firsts: dict = {}
+
+    def forward_b(i, sig):
+        seen[i] += 1
+        firsts.setdefault(seen[i], time.perf_counter())
+        if seen[i] == 1 and i % 2 == 0:
+            a = meta_b + ((i // 2) % n_chunks) * chunk_b
+            sig = sig.copy()
+            sig[a : a + chunk_b] = 0.0
+        return sig
+
+    with path_inputs(store, "batch arq"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        reps = arq.run_batch_arq_session(datas, mode, names, forward_b, device=dev)
+        t_end = time.perf_counter()
+        counts = launch_counts()
+    total.update(counts)
+    for i, r in enumerate(reps):
+        want_sent = [n_chunks, 1] if i % 2 == 0 else [n_chunks]
+        if not (r.complete and r.data == datas[i] and r.file_name == names[i] and r.chunks_sent_per_round == want_sent):
+            fail(f"batch arq: stream {i} complete {r.complete}, exact {r.data == datas[i]}, sent "
+                 f"{r.chunks_sent_per_round} (want {want_sent})")
+    if counts["decode_chunks_fused"] < 1:
+        fail(f"batch arq: decode_chunks_fused never launched: {counts}")
+    starts = [t0] + [firsts[k] for k in sorted(firsts) if k > 1]
+    parts.append(f"run_batch_arq_session {n_streams} streams x {n_chunks} chunks ({cs * n_chunks} bytes a stream), "
+                 f"one chunk frame zeroed on every even stream in round 1: {n_streams} exact files in "
+                 f"{reps[0].rounds} rounds, even streams resent 1 chunk, wall {t_end - t0:.3f} s (rounds "
+                 f"{round_walls(starts, t_end)}), launches {counts}")
+
+    # the loopback curve
+    t0 = time.perf_counter()
+    curve = diag.ber_vs_snr(mode, n_streams=n_streams, n_sym=n_sym, seed=SEED, device=dev)
+    t_curve = time.perf_counter() - t0
+    draws = n_streams * mode.profile.num_data_subs  # one channel estimate per data bin and stream
+    snrs = sorted(curve)
+    for lo, hi in zip(snrs, snrs[1:]):
+        pq = max(curve[lo] * (1 - curve[lo]), 1 / draws)
+        if curve[hi] > curve[lo] + 5 * (2 * pq / draws) ** 0.5 + 5 / draws:
+            fail(f"ber_vs_snr rises from {curve[lo]} at {lo} dB to {curve[hi]} at {hi} dB")
+    if curve[30.0] != 0.0:
+        fail(f"ber_vs_snr: BER {curve[30.0]} at 30 dB")
+    parts.append(f"ber_vs_snr QPSK {n_streams} x {n_sym} symbols "
+                 + ", ".join(f"{s:g} dB {b:.5f}" for s, b in curve.items()) + f" ({t_curve:.3f} s)")
+    return total, "; ".join(parts)
+
+
 def compare_receive(label: str, out: dict, ref: dict, n_valid, mode, by_frame: bool = False):
     """Kernel A's output dict against its plain version: start, coarse,
     coarse metric and detected equal, fine metric within 1e-5, channel within
@@ -813,8 +1150,12 @@ def main() -> None:
     if not (ROOT / "audio_modem_tpu_torch" / "csrc").is_dir():
         fail(f"no audio_modem_tpu_torch/csrc beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
+    import faulthandler
+
     import numpy as np
     import torch
+
+    faulthandler.dump_traceback_later(1100, exit=True)  # a phase that hangs ends the run inside its time limit
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -1109,7 +1450,20 @@ def main() -> None:
     launches18, err18, line, _, _ = batch_receive_device(dev)
     print(f"phase 18 BatchReceiver device ingest {card}: {line}", flush=True)
 
-    batch_launches = launches17 + launches18
+    # 19. the CLI on the card; 20. ARQ and the loopback curve
+    app_inputs: dict = {}
+    small19 = np.random.default_rng(SEED + 19).bytes(32 * 1024 - 32)
+    launches19, line = cli_phase(app_inputs, small19, data12, 1 + -(-len(data12) // chunk))
+    print(f"phase 19 cli {card}: {line}", flush=True)
+    launches20, line = arq_phase(dev, app_inputs, data12)
+    print(f"phase 20 arq and loopback curve {card}: {line}", flush=True)
+    tags = {k[:2] for k in app_inputs}
+    if not {("stream_demod", "cli"), ("stream_demod", "arq"), ("decode_chunks_fused", "batch arq")} <= tags:
+        fail(f"phases 19-20: kernel inputs recorded only at {sorted(k[:3] for k in app_inputs)}")
+    _, checked = check_path_inputs("phases 19-20", app_inputs)
+    print(f"phase 20 kernels against their plain versions on the inputs of phases 19-20: {checked}", flush=True)
+
+    batch_launches = launches17 + launches18 + launches19 + launches20
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,

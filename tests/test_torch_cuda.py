@@ -548,3 +548,72 @@ def test_process_blocks_takes_a_card_tensor_without_a_host_copy(cuda_device, mon
     monkeypatch.undo()
     got = mr._ring_gather(rx.dring, range(n), [rx.dring.rel(0)] * n, 3 * block)
     assert torch.equal(got, torch.cat(blocks, dim=1))
+
+
+@pytest.mark.cuda
+def test_cli_decode_and_listen_on_card(cuda_device, tmp_path, monkeypatch):
+    """The CLI on the card (its default compute device): encode -> decode of
+    a legacy frame, and play -> listen of a chunked PCM file in f32 and s16;
+    exact bytes, and the streaming demod launched by each decode."""
+    from audio_modem_tpu_torch import cli
+
+    rng = np.random.default_rng(21)
+    small, big = rng.bytes(2000), rng.bytes(40 * 1024)
+    (tmp_path / "small.bin").write_bytes(small)
+    (tmp_path / "big.bin").write_bytes(big)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["encode", "small.bin", "s.wav"]) == 0
+    reset_launch_counts()
+    assert cli.main(["decode", "s.wav", "-o", "out.bin"]) == 0
+    assert (tmp_path / "out.bin").read_bytes() == small and launch_counts()["stream_demod"] >= 1
+    for pcm in ("f32", "s16"):
+        assert cli.main(["play", "big.bin", f"{pcm}.pcm", "--no-pace", "--pcm", pcm]) == 0
+        reset_launch_counts()
+        assert cli.main(["listen", f"{pcm}.pcm", "-o", f"{pcm}.bin", "--pcm", pcm]) == 0
+        assert (tmp_path / f"{pcm}.bin").read_bytes() == big
+        assert launch_counts()["stream_demod"] >= 1 + -(-len(big) // MODES["QPSK"].chunk_size)
+    with pytest.raises(SystemExit):
+        cli.main(["--torch-device", "tpu", "info"])
+
+
+@pytest.mark.cuda
+def test_arq_sessions_on_card_match_cpu(cuda_device):
+    """Selective repeat on the card gives the CPU's reports: one stream with
+    chunk 1's frame dropped once, and 4 streams of the batched runtime with
+    a frame dropped on the even ones (kernel B launched)."""
+    from audio_modem_tpu_torch import arq
+
+    mode = MODES["QPSK"]
+    cs = mode.chunk_size
+    rng = np.random.default_rng(22)
+    data = rng.bytes(3 * cs)
+    meta_len = framing.build_metadata_frame(3, 3 * cs, cs, "a.bin", mode, device="cpu").shape[0]
+    chunk_len = framing.build_data_chunk_frame(data[:cs], 0, mode, device="cpu").shape[0]
+
+    def dropper(first_only):
+        seen = {}
+
+        def fwd(i, sig):
+            seen[i] = seen.get(i, 0) + 1
+            if seen[i] == 1 and first_only(i):
+                sig = sig.copy()
+                sig[meta_len + chunk_len : meta_len + 2 * chunk_len] = 0.0
+            return sig
+
+        return fwd
+
+    reports = {}
+    for dev in (cuda_device, "cpu"):
+        one = dropper(lambda i: True)
+        single = arq.run_arq_session(data, mode, "a.bin", lambda s: one(0, s), device=dev)
+        reset_launch_counts()
+        batch_reps = arq.run_batch_arq_session([data] * 4, mode, [f"s{i}.bin" for i in range(4)],
+                                               dropper(lambda i: i % 2 == 0), device=dev)
+        if dev != "cpu":
+            assert launch_counts()["decode_chunks_fused"] >= 1
+        reports[str(dev)] = [dataclasses.asdict(r) for r in [single, *batch_reps]]
+    card, cpu = reports.values()
+    assert card == cpu
+    assert all(r["complete"] and r["data"] == data for r in card)
+    assert card[0]["chunks_sent_per_round"] == [3, 1]
+    assert [r["chunks_sent_per_round"] for r in card[1:]] == [[3, 1], [3], [3, 1], [3]]

@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, channel, decoder, framing
+from audio_modem_tpu_torch import MODES, api, arq, channel, decoder, diag, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
 from audio_modem_tpu_torch.parallel import multi_receiver
+from audio_modem_tpu_torch.runtime import ingest
 from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
 
 torch.set_num_threads(2)
@@ -37,6 +38,10 @@ ENTRY_POINTS = [
     (decoder, "decode_chunk_frame"),
     (framing, "synthesize_frames"), (framing, "build_data_chunk_frames"), (framing, "synthesize_frame"),
     (framing, "build_transmit_signal"), (framing, "build_metadata_frame"), (framing, "build_data_chunk_frame"),
+    (ingest, "listen"), (ingest, "play"),
+    (diag, "generate_test_signal"), (diag, "analyze_loopback"), (diag, "ber_vs_snr"),
+    (diag, "repetition_ber_vs_snr"), (diag, "live_loopback_diagnosis"),
+    (arq, "build_request_frame"), (arq, "run_arq_session"), (arq, "run_batch_arq_session"),
 ]
 
 
@@ -80,9 +85,41 @@ def test_no_source_imports_the_jax_package():
     assert len(files) > 25
     for new in ("native.py", "runtime/ring.py", "runtime/assembler.py", "runtime/receiver.py",
                 "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py", "channel.py",
-                "parallel/multi_receiver.py"):
+                "parallel/multi_receiver.py", "runtime/ingest.py", "runtime/audiodev.py", "diag.py", "arq.py",
+                "cli.py", "utils/plots.py"):
         assert PACKAGE / new in files and f"audio_modem_tpu_torch.{new[:-3].replace('/', '.')}" in MODULES
     assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
+
+
+def test_plots_import_without_matplotlib():
+    """utils.plots imports matplotlib only when it draws, so the port (the
+    CLI and diag included) imports on a machine without matplotlib."""
+    code = (
+        "import sys\n"
+        "for blocked in ('jax', 'audio_modem_tpu', 'matplotlib'):\n"
+        "    sys.modules[blocked] = None\n"
+        "import audio_modem_tpu_torch.utils.plots as plots, audio_modem_tpu_torch.cli, audio_modem_tpu_torch.diag\n"
+        "try:\n"
+        "    plots.plot_ber_curve({0.0: 0.1}, 'never.png')\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_cli_compute_device_does_not_clash_with_the_audio_device():
+    """``--torch-device`` is a top-level option; ``--device`` stays the audio
+    device of listen and play."""
+    from audio_modem_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises(RuntimeError, match="--torch-device cpu"):
+        cli.main(["listen", "--device", "auto"])
+    with pytest.raises(SystemExit):
+        cli.main(["--torch-device", "tpu", "info"])
 
 
 def test_card_only_tests_import_nothing_of_jax():
