@@ -42,11 +42,13 @@ def resolve_device(device) -> torch.device:
 
 
 def runs_on_kernel(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or any
-    other device."""
+    """True for CUDA tensors, False for CPU tensors; raises on a mix, on
+    CUDA tensors of more than one card, or on any other device."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) > 1:
+            raise ValueError(f"tensors must lie on one card, got {sorted({str(t.device) for t in tensors})}")
         return True
     raise ValueError(f"tensors must all lie on the CPU or all on CUDA, got {sorted(kinds)}")

@@ -14,8 +14,10 @@ known, gridded over symbol tiles as well as streams;
 PyTorch prologue in front of it. All three end in one tiled,
 register-blocked demod (``demod_tile``) against ``Tables.rx_demod``. Each wrapper checks its inputs,
 allocates outputs and scratch with ``torch.empty`` and launches on the
-current stream; on CPU tensors it runs the plain version beside it
-(``*_reference``), built from sync and phy.
+current stream of its tensors' device, with that device made current for
+the C call (the launch and the shared-memory attribute it sets act on the
+current device, which need not be the tensors'); on CPU tensors it runs
+the plain version beside it (``*_reference``), built from sync and phy.
 
 Output contract of ``decode_fused`` and ``decode_long_fused`` (as the JAX
 kernels'): start, coarse int32 [B]; coarse_metric, fine_metric float32 [B];
@@ -161,15 +163,16 @@ def decode_fused(
         "ch_re": torch.empty(b, p.num_active_subs, **f32),
         "ch_im": torch.empty(b, p.num_active_subs, **f32),
     }
-    code = lib.amtpu_decode_fused(
-        signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
-        tabs.pre1.data_ptr(), tabs.t_energy,
-        *_table_args(mode, dev),
-        max_syms, n_pos, scratch.data_ptr(),
-        *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
-        *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        code = lib.amtpu_decode_fused(
+            signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
+            tabs.pre1.data_ptr(), tabs.t_energy,
+            *_table_args(mode, dev),
+            max_syms, n_pos, scratch.data_ptr(),
+            *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
+            *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(lib, code, "decode_fused")
     count_launch("decode_fused")
     return out
@@ -191,10 +194,11 @@ def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> to
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
     lib = load_library()
     scratch = torch.empty(lib.amtpu_decode_chunks_fused_scratch_floats(b), dtype=torch.float32, device=dev)
-    code = lib.amtpu_decode_chunks_fused(
-        frames.data_ptr(), b, t, *_table_args(mode, dev), n_sym, scratch.data_ptr(), bits.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        code = lib.amtpu_decode_chunks_fused(
+            frames.data_ptr(), b, t, *_table_args(mode, dev), n_sym, scratch.data_ptr(), bits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(lib, code, "decode_chunks_fused")
     count_launch("decode_chunks_fused")
     return bits
@@ -240,10 +244,11 @@ def stream_demod(
     dev = data.device
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
     lib = load_library()
-    code = lib.amtpu_stream_demod(
-        data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
-        *_table_args(mode, dev), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        code = lib.amtpu_stream_demod(
+            data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
+            *_table_args(mode, dev), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(lib, code, "stream_demod")
     count_launch("stream_demod")
     return bits

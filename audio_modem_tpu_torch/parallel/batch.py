@@ -8,6 +8,12 @@ signal (B = 1) takes the decoder's route, ``decode_long_fused`` (see
 ``decoder._core_dispatch``). The frame-aligned demod goes through
 kernel B. The cadence-predicted decode (refine + CE + demod) is plain
 PyTorch, and so is the AWGN loopback step (``batch_loopback_step``).
+
+``batch_decode_signals``, ``batch_decode_chunk_frames`` and
+``batch_loopback_step`` also take a batch sharded over a mesh
+(``mesh.Sharded``): each shard runs on its own device, every shard's work
+is issued before any result is read, and the results stay sharded; only
+the loopback's BER crosses devices, one scalar a shard.
 """
 
 from __future__ import annotations
@@ -24,12 +30,33 @@ from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fu
 from audio_modem_tpu_torch.kernels.receive import decode_fused_reference as _batch_decode_signals_plain  # noqa: F401
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+from audio_modem_tpu_torch.parallel.mesh import Sharded, StreamMesh
 from audio_modem_tpu_torch.tables import profile_tables
+
+
+def map_shards(fn, *args, **kw) -> list:
+    """``fn`` once per shard, in shard order: each ``Sharded`` argument
+    gives its shard, every other argument goes to every shard as it is.
+    ``fn`` must not wait on the device, so every shard's launches are
+    issued before any result is read."""
+    meshes = {a.mesh for a in args if isinstance(a, Sharded)}
+    if len(meshes) != 1:
+        raise ValueError(f"need arguments sharded over one mesh, got {len(meshes)} meshes")
+    mesh = meshes.pop()
+    return [fn(*(a.shards[k] if isinstance(a, Sharded) else a for a in args), **kw) for k in range(mesh.size)]
+
+
+def shard_generators(seed: int, mesh: StreamMesh) -> tuple[torch.Generator, ...]:
+    """One generator per mesh device, each seeded with ``seed`` (the JAX
+    package hands every shard the same replicated key)."""
+    return tuple(torch.Generator(device=dev).manual_seed(seed) for dev in mesh.devices)
 
 
 def batch_decode_chunk_frames(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:
     """Frame-aligned batch decode: [B, >= (3 + n_sym) * sym] -> bits [B, n_bits]
-    (batched decodeChunkFrame, modem.js:770-803)."""
+    (batched decodeChunkFrame, modem.js:770-803); sharded in, sharded out."""
+    if isinstance(frames, Sharded):
+        return Sharded(frames.mesh, tuple(map_shards(decode_chunks_fused, frames, mode, n_sym)))
     return decode_chunks_fused(frames, mode, n_sym)
 
 
@@ -51,7 +78,11 @@ def batch_decode_signals(
 ) -> dict:
     """Full receive over [B, T] padded windows with [B] valid lengths;
     ``min_pos`` ignores detections before a per-stream position (the
-    streaming runtime's resume). Returns the ``decode_fused`` dict."""
+    streaming runtime's resume). Returns the ``decode_fused`` dict; over a
+    sharded batch, a dict of ``Sharded`` results."""
+    if isinstance(signals, Sharded):
+        outs = map_shards(batch_decode_signals, signals, n_valid, mode, max_syms, min_pos)
+        return {k: Sharded(signals.mesh, tuple(o[k] for o in outs)) for k in outs[0]}
     if min_pos is None:
         min_pos = torch.zeros(signals.shape[0], dtype=torch.int32, device=signals.device)
     return decode_fused(signals, n_valid.to(torch.int32), min_pos.to(torch.int32), mode, max_syms)
@@ -91,7 +122,16 @@ def batch_loopback_step(
     add noise drawn from ``generator`` (``channel.awgn``), estimate the
     channel, demodulate. Plain PyTorch, as the JAX package runs it in XLA.
 
-    bits: [B, n_sym * bits_per_symbol] in {0,1}. Returns (BER, out_bits)."""
+    bits: [B, n_sym * bits_per_symbol] in {0,1}. Returns (BER, out_bits).
+    Over a sharded batch, ``generator`` is one generator per shard
+    (``shard_generators``); the BER is the mean of the shards' BERs on the
+    mesh's first device and out_bits stays sharded."""
+    if isinstance(bits, Sharded):
+        if len(generator) != bits.mesh.size:
+            raise ValueError(f"need one generator per shard ({bits.mesh.size}), got {len(generator)}")
+        outs = [batch_loopback_step(b, g, mode, n_sym, snr_db) for b, g in zip(bits.shards, generator)]
+        ber = torch.stack([o[0].to(bits.mesh.devices[0]) for o in outs]).mean()
+        return ber, Sharded(bits.mesh, tuple(o[1] for o in outs))
     p = mode.profile
     syms = phy.modulate(bits, mode)  # [B, n_sym, sym_len]
     sig = syms.reshape(syms.shape[0], -1)
@@ -114,3 +154,12 @@ def pad_signals(signals: "list[np.ndarray]", pad_len: int | None = None) -> tupl
     for i, s in enumerate(signals):
         out[i, : len(s)] = s[:t]
     return out, n_valid
+
+
+def shardmap_loopback_ber(bits: Sharded, seed: int, mode: ModemMode, n_sym: int, snr_db: float) -> torch.Tensor:
+    """The loopback with its one collective written out: each shard runs
+    TX -> AWGN -> RX -> local BER on its own device, with noise from its
+    own generator seeded ``seed``, and the mean of the shards' BERs, taken
+    on the mesh's first device, is the only cross-device traffic (the JAX
+    package's shard_map with a pmean over the stream axis)."""
+    return batch_loopback_step(bits, shard_generators(seed, bits.mesh), mode, n_sym, snr_db)[0]

@@ -41,6 +41,7 @@ from audio_modem_tpu_torch.kernels import resolve_device
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.parallel import batch
 from audio_modem_tpu_torch.parallel.batch import batch_decode_chunk_frames_packed
+from audio_modem_tpu_torch.parallel.mesh import Sharded, StreamMesh, shard_rows
 from audio_modem_tpu_torch.runtime.assembler import AsyncBatchWriter, ChunkAssembler
 from audio_modem_tpu_torch.runtime.receiver import PRE_META_MAX_PAYLOAD, SCAN_BUCKET, STREAM_MIN_ENERGY, RecvState
 from audio_modem_tpu_torch.runtime.ring import RingBuffer
@@ -60,17 +61,18 @@ def _batch_refine(regions: torch.Tensor, coarse_rel: torch.Tensor, n_valid: torc
     return sync.refine_xcorr(regions, coarse_rel, profile, n_valid)
 
 
-def _ring_gather(ring: "DeviceRing", rows, rel_starts, length: int) -> torch.Tensor:
-    """Ranges of ``length`` samples out of ``ring``: row ``rows[k]`` from
-    ``rel_starts[k]`` samples after the oldest one -> [len(rows), length] on
-    the ring's device. ``rows`` and ``rel_starts`` are host integers, so no
-    index tensor is built: a run of consecutive rows that share a start
-    (streams in lockstep) is one strided copy, or two where the range
-    crosses the end of the buffer; rows that start elsewhere are cut one by
-    one."""
+def _ring_gather(ring: "DeviceRing", rows, rel_starts, length: int, shard: int = 0) -> torch.Tensor:
+    """Ranges of ``length`` samples out of one shard of ``ring``: its row
+    ``rows[k]`` from ``rel_starts[k]`` samples after the oldest one ->
+    [len(rows), length] on the shard's device. ``rows`` and ``rel_starts``
+    are host integers, so no index tensor is built: a run of consecutive
+    rows that share a start (streams in lockstep) is one strided copy, or
+    two where the range crosses the end of the buffer; rows that start
+    elsewhere are cut one by one."""
     cap = ring.capacity
+    buf = ring.shards[shard]
     rows, rel_starts = [int(r) for r in rows], [int(r) for r in rel_starts]
-    out = torch.empty((len(rows), length), dtype=torch.float32, device=ring.buf.device)
+    out = torch.empty((len(rows), length), dtype=torch.float32, device=buf.device)
     k = 0
     while k < len(rows):
         row, rel = rows[k], rel_starts[k]
@@ -79,7 +81,7 @@ def _ring_gather(ring: "DeviceRing", rows, rel_starts, length: int) -> torch.Ten
         end = k + 1
         while end < len(rows) and rows[end] == row + end - k and rel_starts[end] == rel:
             end += 1
-        src = ring.buf[row : row + end - k]
+        src = buf[row : row + end - k]
         pos = (ring.total_written + rel) % cap
         first = min(length, cap - pos)
         out[k:end, :first].copy_(src[:, pos : pos + first])
@@ -140,6 +142,12 @@ def _classify_round(packed: np.ndarray, chunk_size: int):
     return detected, starts, full, seqs
 
 
+def _to_host(packed: "torch.Tensor | Sharded") -> np.ndarray:
+    """A round's packed rows on the host, in stream order: one
+    device-to-host copy (per shard when sharded)."""
+    return packed.numpy() if isinstance(packed, Sharded) else packed.cpu().numpy()
+
+
 def _vote_pack(detected: torch.Tensor, start: torch.Tensor, bits: torch.Tensor, mode: ModemMode) -> torch.Tensor:
     """Repetition vote, byte pack and ``_pack_round`` of one slot."""
     if mode.repetition > 1:
@@ -158,24 +166,46 @@ class DeviceRing:
     nothing else, and a read that crosses the end of the buffer is cut in two
     (``_ring_gather``). ``rel`` gives a global position relative to the
     oldest sample held, the coordinate the round's parameters use.
-    ``capacity`` is rounded up to a multiple of 128."""
+    ``capacity`` is rounded up to a multiple of 128.
 
-    def __init__(self, n: int, capacity: int, device="cuda"):
+    ``mesh``: the stream axis sharded over a ``mesh.StreamMesh`` (``device``
+    is then not read). The ring is one [n / S, capacity] tensor per mesh
+    device (``shards``; without a mesh one [n, capacity] tensor, also
+    ``buf``), every block written is split once per shard, and the rounds
+    cut each shard's windows on its own device, so no sample crosses
+    devices; only the packed per-stream result rows come back."""
+
+    def __init__(self, n: int, capacity: int, device="cuda", mesh: StreamMesh | None = None):
         self.capacity = -(-capacity // 128) * 128
-        self.buf = torch.zeros((n, self.capacity), dtype=torch.float32, device=resolve_device(device))
+        self.mesh = mesh
+        devices = mesh.devices if mesh is not None else (resolve_device(device),)
+        self.rows = n if mesh is None else shard_rows(n, mesh)
+        self.shards = tuple(torch.zeros((self.rows, self.capacity), dtype=torch.float32, device=d) for d in devices)
         self.total_written = 0
+
+    @property
+    def buf(self) -> torch.Tensor:
+        """The [n, capacity] buffer of a ring without a mesh."""
+        if self.mesh is not None:
+            raise AttributeError("a ring sharded over a mesh has one buffer per shard: read .shards")
+        return self.shards[0]
 
     def write(self, blocks: "np.ndarray | torch.Tensor") -> None:
         """Append [n, l] samples to every stream; with l > capacity only the
-        last ``capacity`` samples are stored, global positions advance by l."""
-        blocks = torch.as_tensor(blocks).to(device=self.buf.device, dtype=torch.float32)
+        last ``capacity`` samples are stored, global positions advance by l.
+        A sharded ring takes rows ``k * n / S ..`` of the block into shard
+        k: one upload per shard from the host, a copy between cards or a
+        view from a tensor on a device."""
+        blocks = torch.as_tensor(blocks)
         l = blocks.shape[1]
         keep = min(l, self.capacity)
         pos = (self.total_written + l - keep) % self.capacity
         first = min(keep, self.capacity - pos)
-        self.buf[:, pos : pos + first] = blocks[:, l - keep : l - keep + first]
-        if first < keep:
-            self.buf[:, : keep - first] = blocks[:, l - keep + first :]
+        for k, buf in enumerate(self.shards):
+            part = blocks[k * self.rows : (k + 1) * self.rows, l - keep :].to(device=buf.device, dtype=torch.float32)
+            buf[:, pos : pos + first] = part[:, :first]
+            if first < keep:
+                buf[:, : keep - first] = part[:, first:]
         self.total_written += l
 
     def rel(self, global_start: int) -> int:
@@ -183,17 +213,31 @@ class DeviceRing:
 
     def get_range(self, row: int, global_start: int, length: int) -> np.ndarray | None:
         """Host fetch for the staged fallback paths (parse-failure retries,
-        flush tails). One device-to-host copy per call."""
+        flush tails), from the shard that owns ``row``. One device-to-host
+        copy per call."""
         r = self.rel(global_start)
         if r < 0 or global_start + length > self.total_written:
             return None
-        return _ring_gather(self, [row], [r], length)[0].cpu().numpy()
+        return _ring_gather(self, [row % self.rows], [r], length, row // self.rows)[0].cpu().numpy()
 
     def gather_ranges(self, rows: "list[int]", global_starts: "list[int]", length: int) -> np.ndarray:
-        """Batched host fetch: equal-length ranges for several streams in one
-        device-to-host copy. Callers pre-check validity via rel() and
-        total_written."""
-        return _ring_gather(self, rows, [self.rel(s) for s in global_starts], length).cpu().numpy()
+        """Batched host fetch: equal-length ranges for several streams, one
+        device-to-host copy per shard that owns any of them (every shard's
+        cut is issued before the first copy). Callers pre-check validity
+        via rel() and total_written."""
+        picks: dict[int, list[int]] = {}
+        for j, row in enumerate(rows):
+            picks.setdefault(row // self.rows, []).append(j)
+        cuts = {
+            k: _ring_gather(self, [rows[j] % self.rows for j in js], [self.rel(global_starts[j]) for j in js], length, k)
+            for k, js in picks.items()
+        }
+        if len(cuts) == 1:
+            return next(iter(cuts.values())).cpu().numpy()
+        out = np.empty((len(rows), length), np.float32)
+        for k, js in picks.items():
+            out[js] = cuts[k].cpu().numpy()
+        return out
 
 
 class _DeviceRingView:
@@ -283,27 +327,43 @@ def _batch_window_decode(windows: torch.Tensor, n_valid: torch.Tensor, mode: Mod
     return _vote_pack(out["detected"], out["start"], out["bits"], mode)
 
 
-def _round_inputs(ring: DeviceRing, params: "np.ndarray | torch.Tensor", w: int):
+def _round_inputs(ring: DeviceRing, params: "np.ndarray | torch.Tensor", w: int) -> list:
     """A round's inputs from the ring and the host's [3, n] int32 ``params``
-    (row 0 ``start_rel``): the [n, w] windows cut at ``start_rel``, and
-    ``params`` on the ring's device, sent as ONE upload."""
+    (row 0 ``start_rel``), per shard of the ring: its [n / S, w] windows cut
+    at ``start_rel`` on its device, and its columns of ``params`` there,
+    sent as ONE upload a shard."""
     host = torch.as_tensor(params)
-    n = ring.buf.shape[0]
+    r = ring.rows
+    n = r * len(ring.shards)
     if host.device.type != "cpu" or host.dtype != torch.int32 or tuple(host.shape) != (3, n):
         raise ValueError(f"params: need host int32 [3, {n}], got {host.dtype} {tuple(host.shape)} on {host.device}")
-    windows = _ring_gather(ring, range(n), host[0].tolist(), w)
-    return windows, host.to(ring.buf.device)
+    return [
+        (_ring_gather(ring, range(r), host[0, k * r : (k + 1) * r].tolist(), w, k),
+         host[:, k * r : (k + 1) * r].contiguous().to(buf.device))
+        for k, buf in enumerate(ring.shards)
+    ]
+
+
+def _per_shard(ring: DeviceRing, params, w: int, body) -> "torch.Tensor | Sharded":
+    """``body(windows, params)`` on every shard of the ring, each on its own
+    device, every shard's launches issued before any result is read: the
+    packed result on the ring's device, or ``Sharded`` over its mesh."""
+    parts = [body(windows, dev) for windows, dev in _round_inputs(ring, params, w)]
+    return parts[0] if ring.mesh is None else Sharded(ring.mesh, tuple(parts))
 
 
 def _batch_window_decode_dev(
     ring: DeviceRing, params: "np.ndarray | torch.Tensor", mode: ModemMode, max_syms: int, w: int
-) -> torch.Tensor:
+) -> "torch.Tensor | Sharded":
     """``_batch_window_decode`` on windows cut out of the resident ring: the
     samples never cross the host boundary. ``params`` is the host's [3, n]
     int32 matrix (start_rel, min_pos, n_valid)."""
-    windows, dev = _round_inputs(ring, params, w)
-    out = batch.batch_decode_signals(windows, dev[2], mode, max_syms, min_pos=dev[1])
-    return _vote_pack(out["detected"], out["start"], out["bits"], mode)
+
+    def body(windows, dev):
+        out = batch.batch_decode_signals(windows, dev[2], mode, max_syms, min_pos=dev[1])
+        return _vote_pack(out["detected"], out["start"], out["bits"], mode)
+
+    return _per_shard(ring, params, w, body)
 
 
 def _batch_window_decode_multi_dev(
@@ -317,8 +377,10 @@ def _batch_window_decode_multi_dev(
 ) -> torch.Tensor:
     """The turbo round on windows cut out of the ring. ``params`` is the
     host's [3, n] int32 matrix (start_rel, min_pos, n_valid)."""
-    windows, dev = _round_inputs(ring, params, w)
-    return _multi_decode_core(windows, dev[2], dev[1], mode, n_sym_frame, k_frames, cadence)
+    return _per_shard(
+        ring, params, w,
+        lambda windows, dev: _multi_decode_core(windows, dev[2], dev[1], mode, n_sym_frame, k_frames, cadence),
+    )
 
 
 def _batch_window_decode_pred_dev(
@@ -333,8 +395,11 @@ def _batch_window_decode_pred_dev(
     """Scan-free steady-state round: every slot, slot 0 included, decodes at
     a cadence-predicted position. ``params`` is the host's [3, n] int32
     matrix (start_rel, pred0 relative to the window, n_valid)."""
-    windows, dev = _round_inputs(ring, params, w)
-    return _multi_decode_core(windows, dev[2], None, mode, n_sym_frame, k_frames, cadence, pred0=dev[1])
+    return _per_shard(
+        ring, params, w,
+        lambda windows, dev: _multi_decode_core(windows, dev[2], None, mode, n_sym_frame, k_frames, cadence,
+                                                pred0=dev[1]),
+    )
 
 
 class _Stream:
@@ -389,8 +454,13 @@ class BatchReceiver:
     faster than synchronous fetches (``pipeline_depth=0``): the rounds are
     bound by their host launches, and the fetch waits little.
 
-    The JAX package's ``mesh`` argument (the stream axis sharded over
-    several chips) is not part of this port yet.
+    ``mesh`` (a ``mesh.StreamMesh``) shards the stream axis: the device
+    ring holds each shard's streams on its device and every turbo round
+    runs shard by shard, each on its own device, with one copy of its
+    packed rows back per shard. It implies ``device_ingest``; ``device``
+    is then not read, and the staged fallbacks (scan, refine, kernel B and
+    the retry ladder on host-gathered samples) run on the mesh's first
+    device.
     """
 
     def __init__(
@@ -407,11 +477,15 @@ class BatchReceiver:
         frames_per_round: int = 8,
         pipeline_depth: int = 8,
         device="cuda",
+        mesh: StreamMesh | None = None,
     ):
         self.mode = mode
         self.fec = fec
         self.n = n_streams
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            device_ingest = True
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         # Device-resident ingest: blocks (host numpy or a tensor on the
         # device) go into ONE shared [n, cap] DeviceRing; turbo windows are
         # cut on the device, so per round only scalars go up and decoded
@@ -466,7 +540,7 @@ class BatchReceiver:
             for i in range(n_streams)
         ]
         if self.device_ingest:
-            self.dring = DeviceRing(n_streams, cap, device=self.device)
+            self.dring = DeviceRing(n_streams, cap, device=self.device, mesh=mesh)
             for i, s in enumerate(self.streams):
                 s.ring = _DeviceRingView(self.dring, i)
         self.dc_alpha = dc_alpha
@@ -770,18 +844,34 @@ class BatchReceiver:
                 self.streams[i].assembler.commit()
         return rerun
 
-    def _fetch_later(self, dev: torch.Tensor) -> tuple:
+    @staticmethod
+    def _fetch_later(dev: "torch.Tensor | Sharded") -> list:
         """Start the copy of a speculative round's packed result to the
-        host: on CUDA into a pinned buffer, on the current stream (so after
-        the round), with an event to wait on; on the CPU the round already
-        is host memory. Returns (host tensor, event or None)."""
-        if dev.device.type != "cuda":
-            return dev, None
-        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-        host.copy_(dev, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        host, one piece per shard: on CUDA into a pinned buffer, on the
+        current stream of the piece's device (so after the round), with an
+        event recorded there to wait on; on the CPU the piece already is
+        host memory. Returns [(host tensor, event or None)] in shard order."""
+        pieces = []
+        for part in dev.shards if isinstance(dev, Sharded) else (dev,):
+            if part.device.type != "cuda":
+                pieces.append((part, None))
+                continue
+            host = torch.empty(part.shape, dtype=part.dtype, pin_memory=True)
+            host.copy_(part, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(part.device))
+            pieces.append((host, done))
+        return pieces
+
+    @staticmethod
+    def _fetched(pieces: list) -> np.ndarray:
+        """Wait for ``_fetch_later``'s copies: the packed rows in stream order."""
+        for _, done in pieces:
+            if done is not None:
+                done.synchronize()
+        if len(pieces) == 1:
+            return pieces[0][0].numpy()
+        return np.concatenate([host.numpy() for host, _ in pieces])
 
     def _drain_pending(self, drain_all: bool = False) -> None:
         """Consume queued speculative rounds, oldest first: down to
@@ -796,11 +886,9 @@ class BatchReceiver:
                 and self.dring.total_written - self._pending[0][-1] > self.dring.capacity - 2 * self._max_frame
             )
         ):
-            _dev, host, done, active, bases, lens, est_len, cadence, w, gens, _base = self._pending.popleft()
+            _dev, pieces, active, bases, lens, est_len, cadence, w, gens, _base = self._pending.popleft()
             with self.timer.stage("pipe_fetch"):
-                if done is not None:
-                    done.synchronize()
-                packed = host.numpy()
+                packed = self._fetched(pieces)
             with self.timer.stage("multi_consume"):
                 self._consume_multi(
                     active, bases, lens, packed, est_len, cadence, w, predicted=True, spec_gens=gens,
@@ -877,9 +965,9 @@ class BatchReceiver:
                             self.dring, np.stack([start_rel, pred_rel, lens]), self.mode,
                             n_sym_frame, k, cadence, w_multi,
                         )
-                        host, done = self._fetch_later(dev)
+                        pieces = self._fetch_later(dev)
                     self._pending.append((
-                        dev, host, done, list(active), dict(bases), lens.copy(), est_len, cadence, w_multi,
+                        dev, pieces, list(active), dict(bases), lens.copy(), est_len, cadence, w_multi,
                         {i: self.streams[i].gen for i in active}, min(bases[i] for i in active),
                     ))
                     for i in active:
@@ -903,7 +991,7 @@ class BatchReceiver:
                             n_sym_frame, k, cadence, w_multi,
                         )
                 with self.timer.stage(f"{stage}_fetch"):
-                    packed = dev.cpu().numpy()
+                    packed = _to_host(dev)
                 with self.timer.stage("multi_consume"):
                     return self._consume_multi(
                         active, bases, lens, packed, est_len, cadence, w_multi, predicted=predicted,
@@ -949,7 +1037,7 @@ class BatchReceiver:
                 return self._consume_multi(active, bases, lens, packed, est_len, cadence, w)
             out = _batch_window_decode(self._to_device(windows), self._to_device(lens), self.mode, self._win_max_syms)
         with self.timer.stage("single_fetch"):
-            detected, starts, by_rows = _unpack_round(out.cpu().numpy())
+            detected, starts, by_rows = _unpack_round(_to_host(out))
         progressed = False
         for i in active:
             s = self.streams[i]

@@ -12,7 +12,9 @@ api.decode_chunked of a 1 MiB file in QPSK, 513 frames, 14.6 M samples;
 BASELINE config 3) and the multi-stream runtime (BatchReceiver, 64 QPSK
 streams fed in lockstep blocks of 65,536 samples; BASELINE config 5), and
 the application layer on top of them (the CLI, play | listen over a pipe,
-single-stream and 64-stream selective-repeat ARQ, the BER curve).
+single-stream and 64-stream selective-repeat ARQ, the BER curve), the
+receiver sharded over a mesh, the driver entry points and a multi-process
+torch.distributed group, and the config-5 soaks and the demo.
 Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
@@ -108,9 +110,38 @@ Phases, one line each:
      input of each shape phases 19-20 gave them: B bit for bit, the
      streaming demod bit for bit on every symbol that carries signal (its
      junk symbols, constant or past the signal's end, reported apart)
+ 21. the receiver sharded over a mesh: phase 18's transfer through
+     BatchReceiver(mesh=...) on two shards of cuda:0, on make_mesh() (every
+     card) and, with two or more cards, on make_mesh(2) (with one card it
+     says that the two-card mesh was not run); a warm and a timed pass each,
+     64 exact files, results, counters, final state and stage counts equal
+     to phase 18's un-sharded receiver, kernel A launched once a shard for
+     each of its launches there; wall and stage split beside phase 18's;
+     kernel A against its plain version on every shard's inputs
+ 22. entry points and the cluster: entry() on the card (kernel B once,
+     bit for bit against its plain version), dryrun_multichip on
+     [cuda:0] x 2 and on every card, then parallel.multihost.run_dryrun
+     with 2 gloo ranks x 2 devices sharing the card(s) and with one nccl
+     rank per card: each child's BER (< 0.01), all-gathered flags (all
+     set), launches (kernel A once a device) and devices are checked; then
+     kernels A and B against their plain versions on the inputs of
+     entry() and of every dryrun_multichip shard, which are the ranks'
+     shard inputs too (the same sharded step and shard shape): B bit for
+     bit, A by phase 17's checks and bit for bit on every detected symbol
+     that carries signal (the silent symbol after the frame is reported)
+ 23. the soak (tools/soak.py: 64 streams x 0.82 MB, 400 chunks a stream,
+     sqlite, exact), the lossy soak (tools/soak_lossy.py: 2 sessions x 32
+     streams, plain and FEC, cut to 8 chunks a stream; every stream
+     complete and exact after ARQ), the demo (examples/demo.py at 6,000 B,
+     payload match) in a temporary directory; then kernels A, B and the
+     streaming demod against their plain versions on the first input of
+     each shape these runs gave them (phase 20's checks; on the lossy
+     soak's frames, noisy by design, B may flip at most 2 points a frame,
+     each within 1e-4 of the frame's rms point magnitude of a decision
+     boundary in the plain version)
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15, 17, 18, 19 and 20, each counted from zero,
+the paths of phases 6, 9, 12, 13, 15 and 17-23, each counted from zero,
 the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
 whichever is larger, from this run's shapes, each DFT counted at the cost
 of a real-input FFT), and as the last line
@@ -139,6 +170,10 @@ SEED = 0
 # Published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 FLOP/s without tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# Kernel B on noisy frames: flipped points a frame, and their largest distance from a
+# decision boundary in the plain version, over the frame's rms point magnitude.
+B_FLIPS_A_FRAME = 2
+B_BOUNDARY = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -523,22 +558,28 @@ def check_batch(label: str, rx, want: list) -> None:
 
 
 @contextlib.contextmanager
-def path_inputs(store: dict, tag: str):
+def path_inputs(store: dict, tag: str, shards: int = 1):
     """While the block runs, keep a copy of the first input of each shape
     that the batched path hands kernels A and B (``batch.decode_fused`` and
     ``batch.decode_chunks_fused``) and that the decoder hands the streaming
     demod (``decoder.stream_demod``, and ``receive.stream_demod`` under
     ``decode_long_fused``), each looked up at call time, in ``store``, keyed
     by (kernel, tag, shape, symbols). The kernels run as they would;
-    ``check_path_inputs`` holds them to their plain versions afterwards."""
+    ``check_path_inputs`` holds them to their plain versions afterwards.
+    With ``shards`` > 1 (a receiver sharded over a mesh, whose rounds call
+    kernel A once a shard, in shard order) kernel A's inputs are kept per
+    shard: the tag of the k-th call of a shape is "``tag`` shard k % shards"."""
     from audio_modem_tpu_torch import decoder
     from audio_modem_tpu_torch.kernels import receive
     from audio_modem_tpu_torch.parallel import batch
 
     real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
+    calls_a: Counter = Counter()
 
     def record_a(signals, n_valid, min_pos, mode, max_syms):
-        key = ("decode_fused", tag, tuple(signals.shape), max_syms)
+        shard = calls_a[tuple(signals.shape)] % shards
+        calls_a[tuple(signals.shape)] += 1
+        key = ("decode_fused", f"{tag} shard {shard}" if shards > 1 else tag, tuple(signals.shape), max_syms)
         if key not in store:
             store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
         return real_a(signals, n_valid, min_pos, mode, max_syms)
@@ -564,16 +605,74 @@ def path_inputs(store: dict, tag: str):
         receive.stream_demod = decoder.stream_demod = real_s
 
 
-def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
+def b_points(frames, mode, n_sym: int) -> tuple:
+    """Kernel B's plain version (``receive.decode_chunks_fused_reference``)
+    up to its demap: the pilot-corrected, equalized data points (re, im),
+    each [B, n_sym, data bins]."""
+    import torch
+
+    from audio_modem_tpu_torch import phy
+
+    p = mode.profile
+    sym, need = p.symbol_len, (3 + n_sym) * p.symbol_len
+    mx = frames.abs().amax(dim=-1, keepdim=True)
+    big = mx > 1e-6
+    frames = torch.where(big, frames / torch.where(big, mx, 1.0), frames)
+    frames = torch.nn.functional.pad(frames, (0, max(need - frames.shape[1], 0)))
+    ch_re, ch_im = phy.estimate_channel(frames[:, 2 * sym : 3 * sym], p)
+    return phy._corrected_data(frames[:, 3 * sym : need].reshape(-1, n_sym, sym), ch_re, ch_im, p)
+
+
+def boundary_margin(name: str, re, im):
+    """Distance of each point to the nearest decision boundary of the hard
+    demap (``ops.constellations.demap``): 0 on each axis for BPSK (re only)
+    and QPSK, the midpoints between levels for square QAM."""
+    import torch
+
+    from audio_modem_tpu_torch.ops.constellations import BPS, qam_scale
+
+    if name in ("BPSK", "QPSK"):
+        bounds = torch.zeros(1, device=re.device)
+    else:
+        top = (1 << (BPS[name] // 2)) - 1
+        bounds = qam_scale(name) * (2 * torch.arange(top, device=re.device) + 1 - top)
+    axes = (re,) if name == "BPSK" else (re, im)
+    return torch.stack([(x[..., None] - bounds).abs().amin(-1) for x in axes]).amin(0)
+
+
+def signal_symbols(sig, start, n_valid, mode, n_sym: int):
+    """[B, n_sym] True where kernel A's k-th data symbol of a row (at start
+    + (3 + k) * symbol_len) lies inside n_valid and its samples are not all
+    equal. The others are junk: the front end turns a constant stretch
+    (silence) into a constant, whose data bins hold rounding residue."""
+    import torch
+
+    sym = mode.profile.symbol_len
+    pos = start.to(torch.int64)[:, None] + (3 + torch.arange(n_sym, device=sig.device)) * sym  # [B, n_sym]
+    inside = pos + sym <= n_valid.to(torch.int64)[:, None]
+    idx = torch.clamp(pos[..., None] + torch.arange(sym, device=sig.device), max=sig.shape[1] - 1)
+    x = torch.gather(sig, 1, idx.reshape(sig.shape[0], -1)).reshape(*idx.shape)
+    return inside & ~(x == x[..., :1]).all(-1)
+
+
+def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = ()) -> tuple[float, str]:
     """Kernels A and B and the streaming demod against their plain versions on
     every input that ``path_inputs`` kept: A by
     ``compare_receive(by_frame=True)``, B by equal bits over the frame's
-    symbols, the streaming demod by equal bits over its whole output. Returns
-    (largest fine or channel error, a report)."""
+    symbols, the streaming demod by equal bits over its whole output. Under
+    a tag in ``noisy`` (frames through a noisy channel, whose points may sit
+    on a decision boundary, where the kernel's and cuBLAS's summation orders
+    round apart) B may flip the bits of at most ``B_FLIPS_A_FRAME`` points a
+    frame, and only of a point whose plain equalized value lies within
+    ``B_BOUNDARY`` of the frame's rms point magnitude from a decision
+    boundary (``b_points``). Under a tag in ``clean`` (noiseless frames)
+    A is held bit for bit as well, on every detected row's symbols that
+    carry signal (``signal_symbols``); flips in its junk symbols are
+    reported. Returns (largest fine or channel error, a report)."""
     import torch
 
     from audio_modem_tpu_torch.kernels import receive
-    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, demap
 
     err, parts = 0.0, []
     for (name, tag, shape, n_sym), args in store.items():
@@ -585,9 +684,20 @@ def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
             e_fine, e_ch, flips, n_in, by_kind = compare_receive(
                 f"{label}: kernel A at {where}", out, ref, n_valid, mode, by_frame=True)
             err = max(err, e_fine, e_ch)
+            exact = ""
+            if tag in clean:
+                n_max = out["bits"].shape[1] // bits_per_symbol(mode)
+                carry = signal_symbols(sig, out["start"], n_valid, mode, n_max) & out["detected"][:, None]
+                flipped = (out["bits"] != ref["bits"]).reshape(shape[0], n_max, -1)
+                in_sig, junk = int(flipped[carry].sum().item()), int(flipped[~carry].sum().item())
+                if in_sig:
+                    fail(f"{label}: kernel A at {where} flips {in_sig} bits in symbols that carry signal")
+                exact = (f"; on clean frames: 0 of {int(flipped[carry].numel())} bits flipped in the "
+                         f"{int(carry.sum().item())} detected symbols that carry signal, {junk} in junk symbols "
+                         f"(constant, or past n_valid)")
             parts.append(f"A at {where}: {int(out['detected'].sum())} of {shape[0]} detected, every detected "
                          f"row parses as the plain version's, fine err {e_fine:.3e}, ch err {e_ch:.3e}, flipped "
-                         f"bits {flips} of {n_in} ({by_kind})")
+                         f"bits {flips} of {n_in} ({by_kind}){exact}")
         elif name == "stream_demod":
             data, ch_re, ch_im, scale, mode = args
             out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
@@ -617,10 +727,41 @@ def check_path_inputs(label: str, store: dict) -> tuple[float, str]:
             out = receive.decode_chunks_fused(frames, mode, n_sym)[:, :nb].to(torch.int32)
             ref = receive.decode_chunks_fused_reference(frames, mode, n_sym)[:, :nb].to(torch.int32)
             flips = int((out != ref).sum().item())
-            if flips:
+            if flips and tag not in noisy:
                 fail(f"{label}: kernel B at {where} flips {flips} bits against its plain version")
-            parts.append(f"B at {where}: flipped bits {flips} of {out.numel()}")
+            near = ""
+            if flips:
+                re, im = b_points(frames, mode, n_sym)
+                if not torch.equal(demap(mode.constellation, re, im).reshape(shape[0], -1).to(torch.int32), ref):
+                    fail(f"{label}: b_points at {where} does not demap to kernel B's plain version")
+                per_point = (out != ref).reshape(*re.shape, -1).any(-1)  # [B, n_sym, nd]
+                rel = boundary_margin(mode.constellation, re, im) / torch.sqrt(
+                    (re * re + im * im).mean((1, 2), keepdim=True))
+                worst = float(rel[per_point].max().item())
+                most = int(per_point.sum((1, 2)).max().item())
+                if most > B_FLIPS_A_FRAME or worst > B_BOUNDARY:
+                    fail(f"{label}: kernel B at {where} flips {flips} bits in up to {most} points a frame, one "
+                         f"{worst:.3e} x the frame's rms from a decision boundary (limits {B_FLIPS_A_FRAME} points, "
+                         f"{B_BOUNDARY:.0e})")
+                near = (f" in {int(per_point.sum().item())} point(s), at most {most} a frame, each within "
+                        f"{worst:.3e} x the frame's rms point of a decision boundary in the plain version")
+            parts.append(f"B at {where}: flipped bits {flips} of {out.numel()}{near}")
     return err, "; ".join(parts)
+
+
+def receiver_state(rx) -> tuple:
+    """What two receivers fed the same blocks must agree on: per stream the
+    results, the counters, the final scan position, FSM state, speculation
+    generation and bitmap; the stage call and sample counts."""
+    import dataclasses
+
+    streams = []
+    for s, r in zip(rx.streams, rx.results()):
+        stats = dataclasses.asdict(r["stats"])
+        stats.pop("started_at")
+        streams.append((r["complete"], r["data"], r["file_name"], tuple(r["missing"]), tuple(sorted(stats.items())),
+                        s.scan_pos, s.state.name, s.gen, s.assembler.bitmap().tobytes()))
+    return streams, {k: (v["calls"], v["samples"]) for k, v in rx.timer.report().items()}
 
 
 def batch_receive_host(dev, n: int = N_STREAMS, n_chunks: int = 4, block: int = STREAM_BLOCK) -> tuple[Counter, str]:
@@ -723,7 +864,8 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
     timed beside the lockstep cut. Kernel A is held to its plain version on
     the first input of each shape that the two warm passes gave it. Returns
     (launches of the timed passes, kernel A's largest fine or channel error,
-    a report line, depth 8's stage report, depth 8's and depth 0's walls)."""
+    a report line, and depth 8's reference for phase 21: its wall, stage
+    report, launches and ``receiver_state``)."""
     from audio_modem_tpu_torch import MODES
     from audio_modem_tpu_torch.configs import SAMPLE_RATE
     from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -761,7 +903,7 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
                 fail(f"device ingest: predicted rounds carried {pred} samples, scanned rounds more: {rep}")
             if "pipe_fetch" not in rep:
                 fail(f"device ingest: no speculative fetch at pipeline_depth 8: {rep}")
-            rep8, counts8 = rep, counts
+            rep8, counts8, state8 = rep, counts, receiver_state(rx)
         elif "pipe_fetch" in rep:
             fail("device ingest: a speculative fetch at pipeline_depth 0")
         total.update(counts)
@@ -803,7 +945,188 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
             f"{wall_s:.3f} s = {n * t_s / wall_s / 1e6:.2f} Msamples/s, launches {counts_s}, stages "
             f"{stage_report(rep_s)}; window cut [{n}, {w}] out of the ring: lockstep {t_lock:.3f} ms, staggered "
             f"{t_stag:.3f} ms; against the plain versions at every shape of the warm passes: {checked}")
-    return total, err, line, rep8, walls
+    return total, err, line, {"wall": walls[8], "rep": rep8, "counts": counts8, "state": state8}
+
+
+def mesh_receive(dev, ref: dict, n: int = N_STREAMS, n_chunks: int = 128, block: int = STREAM_BLOCK):
+    """Phase 21: phase 18's transfer (same seed, broadcast blocks on ``dev``,
+    K = 8, pipeline_depth 8) through ``BatchReceiver(mesh=...)``: two shards
+    on ``dev``, every card, and two cards where there are two. A warm pass,
+    then a timed one with launch counts from zero, each 64 files exact; the
+    timed pass's results, counters, final state and stage counts must equal
+    phase 18's un-sharded receiver (``ref``), and kernel A must launch once
+    a shard for each of its launches there. Kernel A is held to its plain
+    version on the first input of each shape on every shard. Returns
+    (launches, kernel A's largest fine or channel error, a report line)."""
+    import torch
+
+    from audio_modem_tpu_torch import MODES
+    from audio_modem_tpu_torch.configs import SAMPLE_RATE
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.parallel.mesh import make_mesh
+    from audio_modem_tpu_torch.parallel.multi_receiver import BatchReceiver
+
+    mode = MODES["QPSK"]
+    data, t, blocks = config5_device_blocks(dev, n, n_chunks, block)
+    want = [data] * n
+    count = torch.cuda.device_count()
+    meshes = [(f"[{dev}] x 2", make_mesh(devices=[dev] * 2)), (f"every card ({count})", make_mesh())]
+    if count >= 2:
+        meshes.append(("two cards", make_mesh(2)))
+    inputs: dict = {}
+    total = Counter()
+    parts = [f"phase 18 (un-sharded) wall {ref['wall']:.3f} s = {n * t / ref['wall'] / 1e6:.2f} Msamples/s, "
+             f"launches {ref['counts']}, stages {stage_report(ref['rep'])}"]
+    for label, mesh in meshes:
+        warm = BatchReceiver(mode, n, scan_bucket=block, pipeline_depth=8, mesh=mesh)
+        with path_inputs(inputs, label, shards=mesh.size):
+            feed_batch(warm, blocks)
+        check_batch(f"mesh {label}, warm pass", warm, want)
+        del warm
+        reset_launch_counts()
+        rx = BatchReceiver(mode, n, scan_bucket=block, pipeline_depth=8, mesh=mesh)
+        wall = feed_batch(rx, blocks)
+        counts = launch_counts()
+        check_batch(f"mesh {label}", rx, want)
+        if [b.device for b in rx.dring.shards] != list(mesh.devices):
+            fail(f"mesh {label}: ring shards on {[str(b.device) for b in rx.dring.shards]}")
+        if receiver_state(rx) != ref["state"]:
+            fail(f"mesh {label}: results, counters or state differ from phase 18's un-sharded receiver")
+        if counts["decode_fused"] != mesh.size * ref["counts"]["decode_fused"]:
+            fail(f"mesh {label}: decode_fused launched {counts['decode_fused']} times, not {mesh.size} x "
+                 f"{ref['counts']['decode_fused']}")
+        total.update(counts)
+        msps = n * t / wall / 1e6
+        parts.append(f"mesh {label} ({', '.join(map(str, mesh.devices))}): {n} exact files, state equal to phase "
+                     f"18's, wall {wall:.3f} s = {msps:.2f} Msamples/s = {msps * 1e6 / SAMPLE_RATE:.0f} real-time "
+                     f"streams, launches {counts}, stages {stage_report(rx.timer.report())}")
+        del rx
+    if count < 2:
+        parts.append("the two-card mesh was not run: this machine has one card")
+    tags = {k[1] for k in inputs if k[0] == "decode_fused"}
+    for label, mesh in meshes:
+        if mesh.size > 1 and not {f"{label} shard {k}" for k in range(mesh.size)} <= tags:
+            fail(f"mesh {label}: kernel A's inputs recorded only for {sorted(tags)}")
+    err, checked = check_path_inputs("mesh", inputs)
+    return total, err, (f"{n} streams x {t} samples ({n_chunks} chunks, K = 8, pipeline_depth 8); "
+                        + "; ".join(parts) + f"; kernel A against its plain version on every shard: {checked}")
+
+
+def entry_and_cluster(dev, store: dict) -> tuple[Counter, str]:
+    """Phase 22: ``entry()`` on the card (kernel B bit for bit against its
+    plain version), ``dryrun_multichip`` on [dev] x 2 and on every card,
+    and the multi-process dry run: 2 gloo ranks x 2 devices sharing the
+    card(s), and one nccl rank per card. Kernel inputs of entry() and of
+    the two dryrun_multichip meshes go to ``store``, kernel A's per shard;
+    each rank runs the same ``multihost.sharded_step`` on a local mesh of
+    the same shard shape (2 rows of the one 64-byte chunk frame a device),
+    so these inputs are the ranks' too. Each child reports its BER, flags
+    and launches; every report is checked here. Returns (launches, line)."""
+    import torch
+
+    from audio_modem_tpu_torch import MODES, entry
+    from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+    from audio_modem_tpu_torch.parallel.multihost import run_dryrun
+
+    total = Counter()
+    parts = []
+    reset_launch_counts()
+    with path_inputs(store, "entry"):
+        fn, (frames,) = entry.entry()
+        bits = fn(frames)
+    counts = launch_counts()
+    plain = receive.decode_chunks_fused_reference(frames, MODES["QPSK"], 4)
+    if counts["decode_chunks_fused"] != 1 or not torch.equal(bits, plain):
+        fail(f"entry(): launches {counts}, bits {tuple(bits.shape)}, "
+             f"{int((bits != plain).sum()) if bits.shape == plain.shape else 'all'} differ from the plain version")
+    total.update(counts)
+    parts.append(f"entry() bits {tuple(bits.shape)} on {frames.device}, launches {counts}, equal to the plain "
+                 f"version's (8 frames of seeded noise, no signal)")
+    count = torch.cuda.device_count()
+    meshes = ((f"[{dev}] x 2", {"n_devices": 2, "devices": [dev] * 2}), (f"{count} card(s)", {"n_devices": count}))
+    for label, kw in meshes:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with path_inputs(store, f"dryrun_multichip {label}", shards=kw["n_devices"]):
+            entry.dryrun_multichip(**kw)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts["decode_fused"] != kw["n_devices"]:
+            fail(f"dryrun_multichip {label}: launches {counts}")
+        total.update(counts)
+        parts.append(f"dryrun_multichip {label} passed in {wall:.3f} s, launches {counts}")
+    tags = {k[:2] for k in store}
+    want = {("decode_chunks_fused", "entry")} | {
+        ("decode_fused", f"dryrun_multichip {label}" + (f" shard {k}" if kw["n_devices"] > 1 else ""))
+        for label, kw in meshes for k in range(kw["n_devices"])}
+    if not want <= tags:
+        fail(f"phase 22: kernel inputs recorded only at {sorted(tags)}")
+    for label, kw in (("gloo, 2 ranks x 2 devices", {"n_processes": 2, "devices_per_process": 2, "backend": "gloo"}),
+                      (f"nccl, {count} rank(s) x 1 card", {"n_processes": count, "devices_per_process": 1,
+                                                           "backend": "nccl"})):
+        t0 = time.perf_counter()
+        reports = run_dryrun(timeout=300.0, **kw)
+        wall = time.perf_counter() - t0
+        world, dpp = kw["n_processes"], kw["devices_per_process"]
+        for r in reports:
+            if not (r["ber"] < 0.01 and r["detected"] == [1] * (2 * dpp * world)
+                    and r["launches"]["decode_fused"] == dpp and not r["jax_loaded"]
+                    and all(d.startswith("cuda:") for d in r["devices"])):
+                fail(f"multihost {label}: rank {r['rank']} reported {r}")
+            total["decode_fused"] += r["launches"]["decode_fused"]
+        parts.append(f"multihost {label} in {wall:.1f} s: " + "; ".join(
+            f"rank {r['rank']} on {','.join(r['devices'])} BER {r['ber']} (local {r['ber_local']}), flags "
+            f"{''.join(map(str, r['detected']))}, launches {r['launches']}" for r in reports))
+    return total, "; ".join(parts)
+
+
+def soak_and_demo(dev, store: dict) -> tuple[Counter, str]:
+    """Phase 23: the soak (64 streams x 0.82 MB, 400 chunks a stream,
+    sqlite), the lossy soak cut to 8 chunks a stream (2 sessions of 32
+    streams, plain and FEC), the demo at its default size in a temporary
+    directory. Kernel inputs go to ``store``. Returns (launches, line)."""
+    import io
+
+    from audio_modem_tpu_torch.examples import demo
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.tools import soak, soak_lossy
+
+    total = Counter()
+    with path_inputs(store, "soak"):
+        rec = soak.run_soak(0.82, N_STREAMS, device=dev)
+    if not (soak.passed(rec) and rec["chunks_expected"] == N_STREAMS * 400):
+        fail(f"soak: {json.dumps({k: v for k, v in rec.items() if k != 'stage_breakdown'})}")
+    total.update(rec["launches"])
+    soak_line = (f"soak {rec['config']['streams']} x {rec['config']['per_stream_bytes']} B "
+                 f"({rec['config']['samples_per_stream']} samples a stream, sqlite): {rec['chunks_received']} of "
+                 f"{rec['chunks_expected']} chunks, {rec['crc_errors']} CRC errors, exact; wall {rec['wall_s']:.3f} s "
+                 f"= {rec['sustained_msps']:.2f} Msamples/s = {rec['realtime_streams']:.0f} real-time streams; "
+                 f"launches {rec['launches']}; stages {stage_report(rec['stage_breakdown'])}")
+    with path_inputs(store, "lossy"):
+        lossy = soak_lossy.run_lossy(0.0164, 32, device=dev)
+    if not lossy["pass"]:
+        fail(f"lossy soak: {json.dumps(lossy)}")
+    for s in lossy["sessions"]:
+        total.update(s["launches"])
+    lossy_line = "lossy soak: " + "; ".join(
+        f"{'FEC' if s['fec'] else 'plain'} {s['streams']} x {s['chunks_per_stream']} chunks, dropouts hit "
+        f"{s['injected_dropout_chunks']}, missing after round 1 {s['missing_after_round1']}, {s['arq_rounds']} "
+        f"rounds (resent {s['resend_counts_per_round']}), every stream complete and exact; round 1 "
+        f"{s['round1_s']:.3f} s, wall {s['wall_s']:.3f} s, launches {s['launches']}" for s in lossy["sessions"])
+    reset_launch_counts()
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as td, contextlib.chdir(td), contextlib.redirect_stdout(printed), \
+            path_inputs(store, "demo"):
+        t0 = time.perf_counter()
+        ok = demo.main([])
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not ok or "payload match: True" not in printed.getvalue():
+        fail(f"demo: {printed.getvalue()}")
+    total.update(counts)
+    demo_line = (f"demo (6,000 B QPSK, 20 dB + multipath + gain + DC) in {wall:.3f} s: "
+                 + " / ".join(printed.getvalue().strip().splitlines()) + f"; launches {counts}")
+    return total, "; ".join([soak_line, lossy_line, demo_line])
 
 
 class CliRun:
@@ -1156,6 +1479,7 @@ def main() -> None:
     import torch
 
     faulthandler.dump_traceback_later(1100, exit=True)  # a phase that hangs ends the run inside its time limit
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -1447,7 +1771,7 @@ def main() -> None:
     print(f"phase 17 BatchReceiver host-fed {card}: {line}", flush=True)
 
     # 18. BatchReceiver, device ingest, steady state
-    launches18, err18, line, _, _ = batch_receive_device(dev)
+    launches18, err18, line, ref18 = batch_receive_device(dev)
     print(f"phase 18 BatchReceiver device ingest {card}: {line}", flush=True)
 
     # 19. the CLI on the card; 20. ARQ and the loopback curve
@@ -1463,14 +1787,31 @@ def main() -> None:
     _, checked = check_path_inputs("phases 19-20", app_inputs)
     print(f"phase 20 kernels against their plain versions on the inputs of phases 19-20: {checked}", flush=True)
 
-    batch_launches = launches17 + launches18 + launches19 + launches20
+    # 21. the receiver sharded over a mesh; 22. entry points and the cluster; 23. soak and demo
+    launches21, err21, line = mesh_receive(dev, ref18)
+    print(f"phase 21 mesh {card}: {line}", flush=True)
+    del ref18
+    cluster_inputs: dict = {}
+    launches22, line = entry_and_cluster(dev, cluster_inputs)
+    print(f"phase 22 entry and cluster {card}: {line}", flush=True)
+    err22, checked = check_path_inputs("phase 22", cluster_inputs, clean=tuple({k[1] for k in cluster_inputs}))
+    print(f"phase 22 kernels against their plain versions on the inputs of entry() and dryrun_multichip "
+          f"(each shard): {checked}", flush=True)
+    soak_inputs: dict = {}
+    launches23, line = soak_and_demo(dev, soak_inputs)
+    print(f"phase 23 soak and demo {card}: {line}", flush=True)
+    err23, checked = check_path_inputs("phase 23", soak_inputs, noisy=("lossy",))
+    print(f"phase 23 kernels against their plain versions on the inputs of phase 23: {checked}", flush=True)
+
+    batch_launches = launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
+    print(f"phases 1-23 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:375",
          "launches": counts["decode_fused"] + ring_launches + batch_launches["decode_fused"],
-         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18), "ms": ms_a,
-         "plain_ms": plain_ms_a,
+         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18, err21, err22, err23),
+         "ms": ms_a, "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:604",

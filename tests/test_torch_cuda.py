@@ -617,3 +617,59 @@ def test_arq_sessions_on_card_match_cpu(cuda_device):
     assert all(r["complete"] and r["data"] == data for r in card)
     assert card[0]["chunks_sent_per_round"] == [3, 1]
     assert [r["chunks_sent_per_round"] for r in card[1:]] == [[3, 1], [3], [3, 1], [3]]
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["QPSK", "BPSK-NARROW"])
+def test_kernels_on_a_card_that_is_not_current(two_cards, name):
+    """Kernels A and B and the streaming demod on tensors of cuda:1 while
+    cuda:0 is current: each launches on its tensors' card (with that card's
+    shared-memory attribute) and equals its plain version there; tensors of
+    two cards are refused."""
+    current, other = two_cards
+    with torch.cuda.device(current):
+        test_kernel_a_matches_plain(other, name)
+        test_kernel_b_matches_plain(other, name)
+        test_stream_demod_matches_plain(other, name, 65, 9)
+        assert torch.cuda.current_device() == current.index
+        x = torch.zeros(2, 4096, device=other)
+        with pytest.raises(ValueError, match="one card"):
+            receive.decode_fused(x, torch.zeros(2, dtype=torch.int32, device=current),
+                                 torch.zeros(2, dtype=torch.int32, device=other), MODES[name], 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["virtual", "two_cards"])
+def test_sharded_batch_receiver_matches_unsharded(cuda_device, cards):
+    """Sixteen streams of four files, blocks on the card, through a receiver
+    sharded over [cuda:0] * 2 (or over two cards) and an un-sharded one: the
+    same state and stage counts, exact files, kernel A launched on every
+    shard; the ring keeps one shard a mesh device."""
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+    from audio_modem_tpu_torch.parallel.mesh import make_mesh
+
+    if cards == "two_cards" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = make_mesh(devices=[cuda_device] * 2) if cards == "virtual" else make_mesh(2)
+    files, signals = _chunked_signals(4, lambda i: 8000, 91, batch=8)
+    signals = [signals[i % 4] for i in range(16)]
+    runs = []
+    for kw in ({"device": cuda_device, "device_ingest": True}, {"mesh": mesh}):
+        reset_launch_counts()
+        rx = mr.BatchReceiver(MODES["QPSK"], 16, scan_bucket=65536, **kw)
+        _feed_blocks(rx, signals, 16384, to=cuda_device)
+        runs.append((_receiver_state(rx), launch_counts(), {k: v["calls"] for k, v in rx.timer.report().items()}))
+        if "mesh" in kw:
+            assert [b.device for b in rx.dring.shards] == list(mesh.devices)
+    (plain, plain_launches, plain_stages), (sharded, sharded_launches, sharded_stages) = runs
+    assert sharded == plain and sharded_stages == plain_stages
+    assert sharded_launches["decode_fused"] == 2 * plain_launches["decode_fused"] >= 2
+    for i, (complete, data, *_) in enumerate(sharded):
+        assert complete and data == files[i % 4]

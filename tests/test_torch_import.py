@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, arq, channel, decoder, diag, framing
+from audio_modem_tpu_torch import MODES, api, arq, channel, decoder, diag, entry, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
-from audio_modem_tpu_torch.parallel import multi_receiver
+from audio_modem_tpu_torch.parallel import multi_receiver, multihost
 from audio_modem_tpu_torch.runtime import ingest
 from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
 
@@ -42,6 +42,7 @@ ENTRY_POINTS = [
     (diag, "generate_test_signal"), (diag, "analyze_loopback"), (diag, "ber_vs_snr"),
     (diag, "repetition_ber_vs_snr"), (diag, "live_loopback_diagnosis"),
     (arq, "build_request_frame"), (arq, "run_arq_session"), (arq, "run_batch_arq_session"),
+    (entry, "entry"), (entry, "dryrun_multihost"), (multihost, "run_dryrun"),
 ]
 
 
@@ -86,7 +87,8 @@ def test_no_source_imports_the_jax_package():
     for new in ("native.py", "runtime/ring.py", "runtime/assembler.py", "runtime/receiver.py",
                 "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py", "channel.py",
                 "parallel/multi_receiver.py", "runtime/ingest.py", "runtime/audiodev.py", "diag.py", "arq.py",
-                "cli.py", "utils/plots.py"):
+                "cli.py", "utils/plots.py", "parallel/mesh.py", "parallel/multihost.py", "entry.py",
+                "tools/soak.py", "tools/soak_lossy.py", "tools/bench_consume.py", "examples/demo.py"):
         assert PACKAGE / new in files and f"audio_modem_tpu_torch.{new[:-3].replace('/', '.')}" in MODULES
     assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
 

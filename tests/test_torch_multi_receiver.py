@@ -297,3 +297,43 @@ class TestWholeRoundFastPath:
         assert ok_fast and ok_slow
         assert out_fast == out_slow == [f, f]
         assert st_fast == st_slow
+
+
+def test_mesh_sharded_device_ingest():
+    """The scenario of tests/test_multi_receiver.py::test_mesh_sharded_device_ingest
+    (16 streams of 4 files of 6,000 B, seed 101, blocks of 16,384) into the
+    JAX package's receiver on its 8-device mesh and the port's on an
+    8-shard virtual CPU mesh: results, stats, state and stage counts equal.
+    After every write the port's ring still holds 8 shards of 2 streams on
+    the mesh's devices, and the port's un-sharded receiver gives identical
+    results and state."""
+    from audio_modem_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from audio_modem_tpu_torch.parallel.mesh import make_mesh
+
+    mode = MODES["QPSK"]
+    rng = np.random.default_rng(101)
+    files = [rng.bytes(6_000) for _ in range(4)]
+    signals = [chunked(f, "QPSK", f"m{i}.bin", batch=8) for i, f in enumerate(files)]
+    n = 16
+    mesh = make_mesh(devices=["cpu"] * 8)
+    jrx = jmr.BatchReceiver(JMODES["QPSK"], n, scan_bucket=65536, mesh=jmake_mesh(8))
+    rx = mr.BatchReceiver(mode, n, scan_bucket=65536, mesh=mesh)
+    plain = mr.BatchReceiver(mode, n, scan_bucket=65536, device_ingest=True, device="cpu")
+    assert rx.device_ingest and rx.device == torch.device("cpu")  # a mesh implies device-resident ingest
+    rows = [signals[i % 4] for i in range(n)]
+    t = max(len(s) for s in rows)
+    for off in range(0, t, 16384):
+        blocks = np.zeros((n, 16384), np.float32)
+        for i, s in enumerate(rows):
+            seg = s[off : off + 16384]
+            blocks[i, : len(seg)] = seg
+        for r in (jrx, rx, plain):
+            r.process_blocks(blocks)
+        assert [b.device for b in rx.dring.shards] == list(mesh.devices)
+        assert [tuple(b.shape) for b in rx.dring.shards] == [(2, rx.dring.capacity)] * 8
+    for r in (jrx, rx, plain):
+        r.flush()
+    assert len(jrx.dring.buf.sharding.device_set) == 8
+    assert_same(jrx, rx)
+    assert_same(plain, rx)
+    assert_files(rx, files)

@@ -181,11 +181,11 @@ def test_k_round_window_wraps_the_ring(monkeypatch):
     wrapped = []
     inner = mr._ring_gather
 
-    def gather(ring, rows, rel_starts, length):
+    def gather(ring, rows, rel_starts, length, shard=0):
         pos = [(ring.total_written + int(r)) % ring.capacity for r in rel_starts]
         if length > 65536 and any(p + length > ring.capacity for p in pos):
             wrapped.append(length)
-        return inner(ring, rows, rel_starts, length)
+        return inner(ring, rows, rel_starts, length, shard)
 
     monkeypatch.setattr(mr, "_ring_gather", gather)
     mode = MODES["QPSK"]
