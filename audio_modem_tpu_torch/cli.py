@@ -10,6 +10,7 @@ WAV-file analogs of the reference UI actions (index.html:98-252):
   testsignal / sweep  generate diagnostic signals
   listen / play  live receive / paced transmit over PCM streams
   info      rate table for all modes (app.js:32-58 analog)
+  bench     the throughput benchmark (``audio_modem_tpu_torch.bench``)
 
 The compute device is the top-level option ``--torch-device`` (``cuda`` by
 default, or ``cpu``), given before the subcommand. Without a CUDA device a
@@ -322,6 +323,12 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from audio_modem_tpu_torch import bench
+
+    return bench.main(device=args.torch_device)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="audio-modem-tpu-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -400,6 +407,9 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser("info", help="mode/rate table")
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("bench", help="throughput benchmark")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     if args.torch_device == "cuda" and not torch.cuda.is_available():

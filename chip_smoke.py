@@ -139,12 +139,26 @@ Phases, one line each:
      soak's frames, noisy by design, B may flip at most 2 points a frame,
      each within 1e-4 of the frame's rms point magnitude of a decision
      boundary in the plain version)
+ 24. the bench (audio_modem_tpu_torch.bench.run, the counterpart of the
+     root bench.py) in this process at its default sizes, launch counts
+     from zero, its details file in a temporary directory: no stage skipped
+     or failed, its headline the four-key line; the headline, the
+     batch4096, frame_demod, long-frame, device-ingest and per-mode rates,
+     the roofline shares and the bench's wall on one line. Then the
+     kernels against their plain versions on the first input of each shape
+     (and mode) the bench gave them: kernel A at 512 rows in each of the
+     six modes and at 4096 rows by phase 4's checks and bit for bit on
+     every symbol that carries signal (the plain version in slices of 512
+     rows), at 64 rows by phase 17's; kernel B bit for bit, on the long
+     BPSK-NARROW and 32 KB QPSK frames too; the streaming demod by phase
+     20's rule
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15 and 17-23, each counted from zero,
-the bound: bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-whichever is larger, from this run's shapes, each DFT counted at the cost
-of a real-input FFT), and as the last line
+the paths of phases 6, 9, 12, 13, 15 and 17-24, each counted from zero,
+the bound: bytes over the card's memory rate or float32 operations over
+its float32 peak, whichever is larger, from this run's shapes, each DFT
+counted at the cost of a real-input FFT; audio_modem_tpu_torch/roofline.py
+holds the peaks and the work models), and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero. There is no
 CPU fallback: without a CUDA device the script stops before any result.
 """
@@ -154,9 +168,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
-import math
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -167,9 +179,6 @@ ROOT = Path(__file__).resolve().parent
 N_STREAMS = 64
 K = 32
 SEED = 0
-# Published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 FLOP/s without tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
 # Kernel B on noisy frames: flipped points a frame, and their largest distance from a
 # decision boundary in the plain version, over the frame's rms point magnitude.
 B_FLIPS_A_FRAME = 2
@@ -198,73 +207,19 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _fft_flops(mode, n_ffts: int) -> float:
-    """Real-input FFTs of fft_size samples, 2.5 N log2 N flops each: the least
-    work that yields the active, data and pilot bins of a symbol."""
-    n = mode.profile.fft_size
-    return 2.5 * n * math.log2(n) * n_ffts
-
-
-def work_decode_fused(mode, b: int, t: int, max_syms: int) -> tuple[float, float]:
-    """(bytes, flops) of kernel A: window, tables and outputs once; mean, normalize
-    (2), block sums (4 per sample), window sums and metric (~50 per position),
-    the +-3*CP refine (2 FMAs per tap), one FFT for the CE and one per symbol."""
-    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
-
-    p = mode.profile
-    n_off = 6 * p.cp_len + 1
-    tables = 4 * p.fft_size * 2 * (p.num_active_subs + p.num_data_subs + len(p.pilots)) + 4 * p.symbol_len
-    out = b * (17 + max_syms * bits_per_symbol(mode) + 8 * p.num_active_subs)
-    n_bytes = 4.0 * b * t + 8 * b + tables + out
-    flops = (7.0 * b * t + 50.0 * b * (t // 16) + 4.0 * b * n_off * p.symbol_len
-             + _fft_flops(mode, b * (1 + max_syms)))
-    return n_bytes, flops
-
-
-def work_chunks(mode, b: int, t: int, n_sym: int) -> tuple[float, float]:
-    """(bytes, flops) of kernel B: frames and bits once; peak, scale, one FFT
-    for the CE and one per symbol."""
-    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
-
-    return (4.0 * b * t + b * n_sym * bits_per_symbol(mode), 2.0 * b * t + _fft_flops(mode, b * (1 + n_sym)))
-
-
-def work_stream_demod(mode, b: int, n_sym: int) -> tuple[float, float]:
-    """(bytes, flops) of the streaming demod: the region, channel and bits once;
-    scale and one FFT per symbol."""
-    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
-
-    p = mode.profile
-    return (4.0 * b * n_sym * p.symbol_len + 8 * b * p.num_active_subs + b * n_sym * bits_per_symbol(mode),
-            1.0 * b * n_sym * p.symbol_len + _fft_flops(mode, b * n_sym))
-
-
 def turbo_windows(dev, rng):
-    """BASELINE config 5's slot-0 input: 64 streams x 32 QPSK data frames
-    (2048-byte chunks) synthesized on ``dev`` and cut into [64, 914,688]
-    windows. Returns (mode, frames, windows, n_valid, min_pos, n_sym, cadence)."""
-    import numpy as np
+    """BASELINE config 5's slot-0 input, as the bench's headline builds it:
+    64 streams x 32 QPSK data frames (2048-byte chunks) synthesized on
+    ``dev`` and cut into [64, 914,688] windows. Returns (mode, frames
+    [64 * 32, cadence], windows, n_valid, min_pos, n_sym, cadence)."""
     import torch
 
-    from audio_modem_tpu_torch import MODES, framing
+    from audio_modem_tpu_torch import MODES, bench
 
     mode = MODES["QPSK"]
-    p = mode.profile
-    chunk = mode.chunk_size
-    n_sym = framing.num_symbols_for_payload(chunk + 11, mode)
-    pre_s, post_s = p.silence_pre_chunk(False), p.silence_post_chunk()
-    cadence = framing.estimate_frame_samples(chunk + 11, mode) + pre_s + post_s
-    w = -(-(K * cadence + 4 * p.symbol_len + p.fft_size + 2048) // 128) * 128
-    payloads = [framing.build_data_chunk_payload(rng.bytes(chunk), s % K) for s in range(N_STREAMS * K)]
-    u8 = torch.from_numpy(np.frombuffer(b"".join(payloads), np.uint8).reshape(N_STREAMS * K, -1).copy()).to(dev)
-    frames = framing._synth_frames_core(u8, mode, n_sym, pre_s, post_s)
-    windows = torch.nn.functional.pad(frames.reshape(N_STREAMS, K * cadence), (0, w - K * cadence)).contiguous()
+    u8 = bench.turbo_payloads(rng, N_STREAMS, K, mode.chunk_size)
+    windows, cadence, n_sym = bench.turbo_windows(u8, mode, N_STREAMS, K, dev)
+    frames = windows[:, : K * cadence].reshape(N_STREAMS * K, cadence)
     n_valid = torch.full((N_STREAMS,), K * cadence, dtype=torch.int32, device=dev)
     min_pos = torch.zeros(N_STREAMS, dtype=torch.int32, device=dev)
     return mode, frames, windows, n_valid, min_pos, n_sym, cadence
@@ -558,7 +513,7 @@ def check_batch(label: str, rx, want: list) -> None:
 
 
 @contextlib.contextmanager
-def path_inputs(store: dict, tag: str, shards: int = 1):
+def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     """While the block runs, keep a copy of the first input of each shape
     that the batched path hands kernels A and B (``batch.decode_fused`` and
     ``batch.decode_chunks_fused``) and that the decoder hands the streaming
@@ -568,7 +523,9 @@ def path_inputs(store: dict, tag: str, shards: int = 1):
     ``check_path_inputs`` holds them to their plain versions afterwards.
     With ``shards`` > 1 (a receiver sharded over a mesh, whose rounds call
     kernel A once a shard, in shard order) kernel A's inputs are kept per
-    shard: the tag of the k-th call of a shape is "``tag`` shard k % shards"."""
+    shard: the tag of the k-th call of a shape is "``tag`` shard k % shards".
+    With ``by_mode`` the mode's name follows the tag, so modes whose inputs
+    share a shape are each kept."""
     from audio_modem_tpu_torch import decoder
     from audio_modem_tpu_torch.kernels import receive
     from audio_modem_tpu_torch.parallel import batch
@@ -576,22 +533,26 @@ def path_inputs(store: dict, tag: str, shards: int = 1):
     real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
     calls_a: Counter = Counter()
 
+    def tag_of(mode) -> str:
+        return f"{tag} {mode.name}" if by_mode else tag
+
     def record_a(signals, n_valid, min_pos, mode, max_syms):
         shard = calls_a[tuple(signals.shape)] % shards
         calls_a[tuple(signals.shape)] += 1
-        key = ("decode_fused", f"{tag} shard {shard}" if shards > 1 else tag, tuple(signals.shape), max_syms)
+        key = ("decode_fused", f"{tag_of(mode)} shard {shard}" if shards > 1 else tag_of(mode),
+               tuple(signals.shape), max_syms)
         if key not in store:
             store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
         return real_a(signals, n_valid, min_pos, mode, max_syms)
 
     def record_b(frames, mode, n_sym):
-        key = ("decode_chunks_fused", tag, tuple(frames.shape), n_sym)
+        key = ("decode_chunks_fused", tag_of(mode), tuple(frames.shape), n_sym)
         if key not in store:
             store[key] = (frames.clone(), mode)
         return real_b(frames, mode, n_sym)
 
     def record_s(data, ch_re, ch_im, scale, mode, n_sym):
-        key = ("stream_demod", tag, tuple(data.shape), n_sym)
+        key = ("stream_demod", tag_of(mode), tuple(data.shape), n_sym)
         if key not in store:
             store[key] = (data.clone(), ch_re.clone(), ch_im.clone(), scale.clone(), mode)
         return real_s(data, ch_re, ch_im, scale, mode, n_sym)
@@ -655,6 +616,19 @@ def signal_symbols(sig, start, n_valid, mode, n_sym: int):
     return inside & ~(x == x[..., :1]).all(-1)
 
 
+def plain_receive(sig, n_valid, min_pos, mode, max_syms: int, rows: int = 512) -> dict:
+    """Kernel A's plain version (``receive.decode_fused_reference``) in
+    slices of ``rows`` rows, which are independent; the slices' outputs
+    concatenated."""
+    import torch
+
+    from audio_modem_tpu_torch.kernels import receive
+
+    parts = [receive.decode_fused_reference(sig[i : i + rows], n_valid[i : i + rows], min_pos[i : i + rows], mode,
+                                            max_syms) for i in range(0, sig.shape[0], rows)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
 def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = ()) -> tuple[float, str]:
     """Kernels A and B and the streaming demod against their plain versions on
     every input that ``path_inputs`` kept: A by
@@ -680,7 +654,7 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
         if name == "decode_fused":
             sig, n_valid, min_pos, mode = args
             out = receive.decode_fused(sig, n_valid, min_pos, mode, n_sym)
-            ref = receive.decode_fused_reference(sig, n_valid, min_pos, mode, n_sym)
+            ref = plain_receive(sig, n_valid, min_pos, mode, n_sym)
             e_fine, e_ch, flips, n_in, by_kind = compare_receive(
                 f"{label}: kernel A at {where}", out, ref, n_valid, mode, by_frame=True)
             err = max(err, e_fine, e_ch)
@@ -1129,6 +1103,62 @@ def soak_and_demo(dev, store: dict) -> tuple[Counter, str]:
     return total, "; ".join([soak_line, lossy_line, demo_line])
 
 
+BENCH_RATES = ("batch4096_full_pipeline_msps", "frame_demod_only_msps", "long_frame_kernel_msps",
+               "long_std_kernel_msps", "batch_receiver_device_msps")
+
+
+def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
+    """Phase 24: ``audio_modem_tpu_torch.bench.run()`` at its default sizes in
+    this process, its details file in a temporary directory and its stdout
+    captured, launch counts from zero; kernel inputs go to ``store``, each
+    keyed by its mode too (two modes give kernel A the same shape). Fails on
+    a skipped or failed stage, on a last line that is not the four-key
+    headline, and on a kernel that never launched. Kernel A's inputs of
+    more rows than a stream batch (the batch512, batch4096 and per-mode
+    stages: clean frames) are tagged " clean". Returns (launches, line,
+    the tags to hold A bit for bit on)."""
+    import io
+    import os
+    from unittest import mock
+
+    from audio_modem_tpu_torch import bench
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bench_torch.json"
+        with mock.patch.dict(os.environ, {"AMT_BENCH_DETAILS": str(path)}):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with path_inputs(store, "bench", by_mode=True), contextlib.redirect_stdout(out):
+                headline, d = bench.run()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        written = json.loads(path.read_text())
+    if d.get("failed_stages") or d.get("skipped_stages"):
+        fail(f"bench: failed {d.get('failed_stages')}, skipped {d.get('skipped_stages')}")
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or last != headline or written["value"] != last["value"]:
+        fail(f"bench: last stdout line {last}, headline {headline}")
+    if min(counts.values()) < 1:
+        fail(f"bench: a kernel never launched: {counts}")
+    missing = [k for k in BENCH_RATES + ("per_mode_msps", "roofline") if k not in d]
+    if missing or len(d["per_mode_msps"]) != 6:
+        fail(f"bench: details lack {missing} or a mode: {sorted(d)}")
+    if len(d["roofline"]["kernels"]) != 3 or any(r["bound_by"] is None for r in d["roofline"]["kernels"].values()):
+        fail(f"bench: roofline {d['roofline']}")
+    for key in [k for k in store if k[0] == "decode_fused" and k[2][0] > N_STREAMS]:
+        store[(key[0], f"{key[1]} clean", *key[2:])] = store.pop(key)
+    shares = "; ".join(f"{name} at {r['at_msps']} Msamples/s: {r['bytes_per_sample']:.3f} B, "
+                       f"{r['fp32_flops_per_sample']:.1f} float32 operations a sample, {r['pct_of_hbm']:.3f}% of the "
+                       f"memory rate, {r['pct_of_fp32']:.3f}% of the float32 peak ({r['bound_by']})"
+                       for name, r in d["roofline"]["kernels"].items())
+    line = (f"bench.run() at its default sizes in {wall:.1f} s, no stage skipped or failed; headline "
+            f"{json.dumps(last)}; " + ", ".join(f"{k} {d[k]}" for k in BENCH_RATES)
+            + f", per_mode_msps {json.dumps(d['per_mode_msps'])}; roofline: {shares}; launches {counts}")
+    return Counter(counts), line, tuple({k[1] for k in store if k[1].endswith(" clean")})
+
+
 class CliRun:
     """``cli.main`` of the port in this process, so the launch counters see
     its work, on its default compute device, the card. Use inside
@@ -1484,21 +1514,25 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
 
-    from audio_modem_tpu_torch import MODES, api, assert_full_fp32, decoder, framing
+    from audio_modem_tpu_torch import MODES, api, assert_full_fp32, bench, decoder, framing
     from audio_modem_tpu_torch.kernels import _build, launch_counts, receive, reset_launch_counts
     from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
+    from audio_modem_tpu_torch.roofline import bound_ms, card_peaks, work_chunks, work_decode_fused, work_stream_demod
 
     assert_full_fp32()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    if peaks is None:
+        fail(f"no published peaks for {torch.cuda.get_device_name(0)!r} in audio_modem_tpu_torch/roofline.py: "
+             "the bounds need the card's memory rate and float32 peak")
 
     # 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0].strip()
+    smi = bench.card_line()
+    if smi is None:
+        fail("nvidia-smi did not give the card's name and power limit")
     print(smi)
     card = f"[{smi}]"
     print(f"phase 1 card: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1581,8 +1615,8 @@ def main() -> None:
     pb1, kb1, kb2, pb2 = time_ms(plain_b), time_ms(run_b), time_ms(run_b), time_ms(plain_b)
     ms_a, plain_ms_a = statistics.median([ka1, ka2]), statistics.median([pa1, pa2])
     ms_b, plain_ms_b = statistics.median([kb1, kb2]), statistics.median([pb1, pb2])
-    bound_a = bound_ms(*work_decode_fused(mode, N_STREAMS, windows.shape[1], n_sym))
-    bound_b = bound_ms(*work_chunks(mode, N_STREAMS, aligned.shape[1], n_sym))
+    bound_a = bound_ms(*work_decode_fused(mode, N_STREAMS, windows.shape[1], n_sym), peaks)
+    bound_b = bound_ms(*work_chunks(mode, N_STREAMS, aligned.shape[1], n_sym), peaks)
     print(f"phase 7 times {card}: turbo round {t_round:.3f} ms = {msps:.1f} Msamples/s; "
           f"kernel A {ms_a:.3f} ms (runs {ka1:.3f}, {ka2:.3f}) vs plain A {plain_ms_a:.3f} ms "
           f"(runs {pa1:.3f}, {pa2:.3f}), bound {bound_a[0]:.4f} ms ({bound_a[1]}), roofline share "
@@ -1683,8 +1717,8 @@ def main() -> None:
     run_a1 = lambda: receive.decode_fused(padded2[None], nv2, mp2, mode2, ms2)  # noqa: E731
     ta1, tl1, tl2, ta2 = (time_ms(f, reps=5, warm=1) for f in (run_a1, run_l, run_l, run_a1))
     ms_a1 = statistics.median([ta1, ta2])
-    bound_a1 = bound_ms(*work_decode_fused(mode2, 1, padded2.shape[0], ms2))
-    bound_s = bound_ms(*work_stream_demod(mode2, 1, ms2))
+    bound_a1 = bound_ms(*work_decode_fused(mode2, 1, padded2.shape[0], ms2), peaks)
+    bound_s = bound_ms(*work_stream_demod(mode2, 1, ms2), peaks)
     fr_n, m_n, ns_n = stream_frames["BPSK-NARROW"]
     run_cs = lambda: receive.decode_chunks_fused_stream(fr_n, m_n, ns_n)  # noqa: E731
     run_cb = lambda: receive.decode_chunks_fused(fr_n, m_n, ns_n)  # noqa: E731
@@ -1730,7 +1764,7 @@ def main() -> None:
         fail("stream_demod differs from its plain version on a chunk frame")
     pf1, kf1, kf2, pf2 = time_ms(plain_f), time_ms(run_f), time_ms(run_f), time_ms(plain_f)
     ms_f = statistics.median([kf1, kf2])
-    bound_f = bound_ms(*work_stream_demod(m12, 1, nb12))
+    bound_f = bound_ms(*work_stream_demod(m12, 1, nb12), peaks)
     print(f"phase 12 stream_demod on one chunk frame ({nb12} symbols, B = 1) {card}: {ms_f:.4f} ms ({kf1:.4f}, "
           f"{kf2:.4f}) vs plain {statistics.median([pf1, pf2]):.4f} ms ({pf1:.4f}, {pf2:.4f}), bound "
           f"{bound_f[0]:.6f} ms ({bound_f[1]}); {chunked_launches} launches x (time - bound) = "
@@ -1803,14 +1837,23 @@ def main() -> None:
     err23, checked = check_path_inputs("phase 23", soak_inputs, noisy=("lossy",))
     print(f"phase 23 kernels against their plain versions on the inputs of phase 23: {checked}", flush=True)
 
-    batch_launches = launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
-    print(f"phases 1-23 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    # 24. the bench at its default sizes
+    bench_inputs: dict = {}
+    launches24, line, clean24 = bench_phase(bench_inputs)
+    print(f"phase 24 bench {card}: {line}", flush=True)
+    err24, checked = check_path_inputs("phase 24", bench_inputs, clean=clean24)
+    print(f"phase 24 kernels against their plain versions at every shape and mode of the bench: {checked}", flush=True)
+    del bench_inputs
+
+    batch_launches = (launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
+                      + launches24)
+    print(f"phases 1-24 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:375",
          "launches": counts["decode_fused"] + ring_launches + batch_launches["decode_fused"],
-         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18, err21, err22, err23),
+         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18, err21, err22, err23, err24),
          "ms": ms_a, "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,

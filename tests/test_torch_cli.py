@@ -182,6 +182,19 @@ def test_without_a_card_main_raises(dirs, monkeypatch):
     assert not (dirs["port"] / "x.wav").exists()
 
 
-def test_bench_is_not_a_subcommand_of_the_port(capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["--torch-device", "cpu", "bench"])
+def test_bench_runs_the_ports_bench(monkeypatch):
+    """``bench`` calls ``audio_modem_tpu_torch.bench.main`` on the device
+    given by ``--torch-device``, returns its exit code, and never imports
+    the root bench.py (blocked here, so an import would raise)."""
+    from audio_modem_tpu_torch import bench
+
+    calls = []
+
+    def fake_main(device):
+        calls.append(device)
+        return 1
+
+    monkeypatch.setitem(sys.modules, "bench", None)
+    monkeypatch.setattr(bench, "main", fake_main)
+    assert cli.main(["--torch-device", "cpu", "bench"]) == 1
+    assert calls == [torch.device("cpu")]

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, channel, decoder, framing, phy, sync
+from audio_modem_tpu_torch import MODES, api, bench, channel, decoder, framing, phy, sync
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
@@ -673,3 +673,53 @@ def test_sharded_batch_receiver_matches_unsharded(cuda_device, cards):
     assert sharded_launches["decode_fused"] == 2 * plain_launches["decode_fused"] >= 2
     for i, (complete, data, *_) in enumerate(sharded):
         assert complete and data == files[i % 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["BPSK-REPEAT", "64-QAM"])
+def test_kernel_a_at_the_benchs_per_mode_shape(cuda_device, name):
+    """Kernel A on the bench's per-mode input: 512 rows of 8 clean frames at
+    the bench's payload size. Start, coarse, coarse metric and detected
+    equal to the plain version's, fine metric within 1e-5, channel within
+    1e-4, bits equal on the data symbols (the silence after them is a
+    constant whose bins hold rounding residue)."""
+    mode = MODES[name]
+    payload = bench.mode_payload(name)
+    _, sig, nv, max_syms = bench.chunk_frame_signals(np.random.default_rng(3), mode, payload, 8, 512, cuda_device)
+    min_pos = torch.zeros(512, dtype=torch.int32, device=cuda_device)
+    reset_launch_counts()
+    out = receive.decode_fused(sig, nv, min_pos, mode, max_syms)
+    assert launch_counts()["decode_fused"] == 1
+    ref = receive.decode_fused_reference(sig, nv, min_pos, mode, max_syms)
+    for key in ("start", "coarse", "coarse_metric", "detected"):
+        assert torch.equal(out[key], ref[key]), key
+    assert out["detected"].all()
+    assert (out["fine_metric"] - ref["fine_metric"]).abs().max().item() < 1e-5
+    for key in ("ch_re", "ch_im"):
+        assert (out[key] - ref[key]).abs().max().item() < 1e-4
+    nb = framing.num_symbols_for_payload(payload + 11, mode) * bits_per_symbol(mode)
+    assert torch.equal(out["bits"][:, :nb], ref["bits"][:, :nb])
+
+
+@pytest.mark.cuda
+def test_stream_demod_on_the_benchs_32kb_qpsk_frames(cuda_device):
+    """The streaming demod on the bench's long_frame_standard input: 64 rows
+    of 8 QPSK frames of a 32 KB payload (640 symbols of 576 samples) under
+    AWGN of 0.02, bit for bit against its plain version and kernel B. (At
+    that noise the 262,400 bits of a row carry a few errors in every
+    version, so the rows are not CRC-valid; the bench reads only rates.)"""
+    mode = MODES["QPSK"]
+    p = mode.profile
+    rng = np.random.default_rng(4)
+    n_sym = framing.num_symbols_for_payload(32768 + 11, mode)
+    one = framing.build_data_chunk_frame(rng.bytes(32768), 0, mode, device=cuda_device)
+    one = one[p.silence_pre_chunk(False) :][: (3 + n_sym) * p.symbol_len].cpu().numpy()
+    host = np.tile(one, (8, 1)) + bench.LONG_NOISE * rng.standard_normal((8, one.shape[0])).astype(np.float32)
+    frames = torch.from_numpy(host).to(cuda_device)[torch.arange(64, device=cuda_device) % 8].contiguous()
+    reset_launch_counts()
+    ks = receive.decode_chunks_fused_stream(frames, mode, n_sym)
+    assert launch_counts()["stream_demod"] == 1
+    ps = receive.decode_chunks_fused_reference(frames, mode, n_sym)
+    kb = receive.decode_chunks_fused(frames, mode, n_sym)
+    assert n_sym == 640 and ks.shape == (64, n_sym * bits_per_symbol(mode))
+    assert torch.equal(ks.to(torch.int32), ps.to(torch.int32)) and torch.equal(ks.to(torch.int32), kb.to(torch.int32))

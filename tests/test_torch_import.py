@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_modem_tpu_torch import MODES, api, arq, channel, decoder, diag, entry, framing
+from audio_modem_tpu_torch import MODES, api, arq, bench, channel, decoder, diag, entry, framing
 from audio_modem_tpu_torch import kernels
 from audio_modem_tpu_torch.kernels import receive
 from audio_modem_tpu_torch.parallel import multi_receiver, multihost
@@ -43,6 +43,7 @@ ENTRY_POINTS = [
     (diag, "repetition_ber_vs_snr"), (diag, "live_loopback_diagnosis"),
     (arq, "build_request_frame"), (arq, "run_arq_session"), (arq, "run_batch_arq_session"),
     (entry, "entry"), (entry, "dryrun_multihost"), (multihost, "run_dryrun"),
+    (bench, "run"), (bench, "main"),
 ]
 
 
@@ -64,7 +65,7 @@ def test_imports_with_jax_blocked():
     blocked, and afterwards no module of either package is loaded."""
     code = (
         "import sys\n"
-        "for blocked in ('jax', 'triton', 'audio_modem_tpu'):\n"
+        "for blocked in ('jax', 'triton', 'audio_modem_tpu', 'bench'):\n"
         "    sys.modules[blocked] = None\n"
         "import importlib\n"
         f"for m in {MODULES!r}:\n"
@@ -88,9 +89,24 @@ def test_no_source_imports_the_jax_package():
                 "utils/log.py", "utils/metrics.py", "utils/trace.py", "utils/wav.py", "channel.py",
                 "parallel/multi_receiver.py", "runtime/ingest.py", "runtime/audiodev.py", "diag.py", "arq.py",
                 "cli.py", "utils/plots.py", "parallel/mesh.py", "parallel/multihost.py", "entry.py",
-                "tools/soak.py", "tools/soak_lossy.py", "tools/bench_consume.py", "examples/demo.py"):
+                "tools/soak.py", "tools/soak_lossy.py", "tools/bench_consume.py", "examples/demo.py",
+                "bench.py", "roofline.py"):
         assert PACKAGE / new in files and f"audio_modem_tpu_torch.{new[:-3].replace('/', '.')}" in MODULES
     assert [hit for f in files for hit in _imports_of_jax_package(f)] == []
+
+
+def test_no_source_imports_the_root_bench():
+    """The port and chip_smoke.py import nothing of the root bench.py (the
+    JAX package's benchmark): the port's bench is audio_modem_tpu_torch.bench."""
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else []
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            found += [f"{path.name}:{node.lineno} {n}" for n in names if n == "bench" or n.startswith("bench.")]
+    assert found == []
 
 
 def test_plots_import_without_matplotlib():
