@@ -40,7 +40,9 @@ convolutions: the plain reference must not round to ~3 decimal digits.
 
 import torch
 
-from audio_modem_tpu_torch.configs import MODES, ModemMode, OfdmProfile
+from audio_modem_tpu_torch.configs import MODES, OFDM_PROFILES, ModemMode, OfdmProfile
+
+__version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -54,4 +56,4 @@ def assert_full_fp32() -> None:
 
 assert_full_fp32()
 
-__all__ = ["MODES", "ModemMode", "OfdmProfile", "assert_full_fp32"]
+__all__ = ["MODES", "OFDM_PROFILES", "ModemMode", "OfdmProfile", "__version__", "assert_full_fp32"]

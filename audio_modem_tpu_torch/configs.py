@@ -234,9 +234,9 @@ class ModemMode:
 
     @property
     def bps(self) -> int:
-        from audio_modem_tpu_torch.ops.constellations import BPS
+        from audio_modem_tpu_torch.ops.constellations import CONSTELLATIONS
 
-        return BPS[self.constellation]
+        return CONSTELLATIONS[self.constellation].bps
 
     @property
     def bits_per_symbol(self) -> int:

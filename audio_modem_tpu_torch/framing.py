@@ -24,7 +24,7 @@ from audio_modem_tpu_torch.configs import FRAME_DATA, FRAME_FEC, FRAME_META, Mod
 from audio_modem_tpu_torch.ops.crc32 import crc32
 from audio_modem_tpu_torch import phy
 from audio_modem_tpu_torch.kernels import resolve_device
-from audio_modem_tpu_torch.ops.bits import bytes_to_bits
+from audio_modem_tpu_torch.ops.bits import bytes_to_bits, repeat_bits
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.tables import profile_tables
 
@@ -224,7 +224,7 @@ def payload_to_bits(payload: bytes, mode: ModemMode) -> np.ndarray:
     (modem.js:524-526, 329)."""
     bits = np.unpackbits(np.frombuffer(bytes(payload), np.uint8)).astype(np.int8)
     if mode.repetition > 1:
-        bits = np.repeat(bits, mode.repetition)
+        bits = repeat_bits(torch.from_numpy(bits), mode.repetition).numpy()
     pad = (-len(bits)) % bits_per_symbol(mode)
     if pad:
         bits = np.concatenate([bits, np.zeros(pad, dtype=bits.dtype)])
@@ -264,7 +264,7 @@ def _synth_frames_body(
     b = payloads_u8.shape[0]
     bits = bytes_to_bits(payloads_u8)
     if mode.repetition > 1:
-        bits = torch.repeat_interleave(bits, mode.repetition, dim=-1)
+        bits = repeat_bits(bits, mode.repetition)
     bits = torch.nn.functional.pad(bits, (0, n_sym * bits_per_symbol(mode) - bits.shape[1]))
     syms = phy.modulate(bits, mode)  # [B, n_sym, sym]
     header = profile_tables(mode, payloads_u8.device).header

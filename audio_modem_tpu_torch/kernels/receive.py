@@ -35,7 +35,7 @@ import torch
 from audio_modem_tpu_torch import phy, sync
 from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
-from audio_modem_tpu_torch.ops.constellations import BPS, bits_per_symbol, qam_scale
+from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, qam_scale
 from audio_modem_tpu_torch.tables import profile_tables
 
 
@@ -113,7 +113,7 @@ def _table_args(mode: ModemMode, device: torch.device) -> tuple:
         tabs.rx_active.data_ptr(), tabs.ce_known.data_ptr(), tabs.rx_demod.data_ptr(),
         tabs.data_pos.data_ptr(), tabs.pilot_pos.data_ptr(),
         p.fft_size, p.cp_len, p.num_active_subs, p.num_data_subs, len(p.pilots), tabs.rx_demod.shape[1],
-        qam_scale(name) if BPS[name] > 2 else 1.0, BPS[name],
+        qam_scale(name) if mode.bps > 2 else 1.0, mode.bps,
     )
 
 

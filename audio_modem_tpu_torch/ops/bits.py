@@ -1,5 +1,5 @@
-"""MSB-first bit/byte packing, repetition voting and soft combining on
-tensors (modem.js:460-495; counterpart of audio_modem_tpu/ops/bits.py)."""
+"""MSB-first bit/byte packing, repetition coding, voting and soft combining
+on tensors (modem.js:460-495; counterpart of audio_modem_tpu/ops/bits.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,12 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     b = bits[..., : k * 8].reshape(*lead, k, 8).to(torch.int32)
     w = torch.tensor(_WEIGHTS, dtype=torch.int32, device=bits.device)
     return (b * w).sum(dim=-1).to(torch.uint8)
+
+
+def repeat_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """Repetition code over the last axis: each bit n times in a row
+    (modem.js:479-485)."""
+    return torch.repeat_interleave(bits, n, dim=-1)
 
 
 def majority_vote(bits: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,43 +1,82 @@
-"""Constellation map / hard demap in closed form (modem.js:101-150;
-counterpart of audio_modem_tpu/ops/constellations.py).
+"""Constellation tables and map / hard demap in closed form
+(modem.js:101-150; counterpart of audio_modem_tpu/ops/constellations.py).
 
-Gray-coded BPSK, QPSK and square 16/64-QAM at unit average power. Both
-directions are elementwise: no point tables, no gathers. Rounding is half to
-even (``torch.round``), as ``jnp.round`` and CUDA ``rintf`` do.
+Gray-coded BPSK, QPSK and square 16/64-QAM at unit average power. The point
+tables (``CONSTELLATIONS``) are host data, built as the reference builds
+them; map and demap are elementwise and read only their bits per point and
+level spacing: no gathers. Rounding is half to even (``torch.round``), as
+``jnp.round`` and CUDA ``rintf`` do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from audio_modem_tpu_torch.configs import ModemMode
 
-BPS = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6}
+
+@dataclasses.dataclass(frozen=True)
+class Constellation:
+    name: str
+    bps: int
+    # points as [n, 2] float64 (re, im), index = MSB-first packed bits
+    points: tuple[tuple[float, float], ...]
+
+    @property
+    def n_points(self) -> int:
+        return 1 << self.bps
+
+    def points_np(self) -> np.ndarray:
+        return np.asarray(self.points, dtype=np.float64)
+
+
+def _square_qam_points(bits_per_axis: int) -> tuple[tuple[float, float], ...]:
+    """Gray-coded square QAM at unit average power: index -> (row, col), Gray
+    map each axis, levels 2g - (2^b - 1), scaled by 1/sqrt(average power)
+    (modem.js:117-129 for 16-QAM; 64-QAM by the same construction)."""
+    m = 1 << bits_per_axis
+    top = m - 1
+    levels = [2 * g - top for g in range(m)]
+    avg = 2 * sum(l * l for l in levels) / m
+    s = 1.0 / math.sqrt(avg)
+    pts = []
+    for i in range(m * m):
+        row, col = i >> bits_per_axis, i & top
+        gr, gc = row ^ (row >> 1), col ^ (col >> 1)
+        pts.append(((2 * gc - top) * s, (2 * gr - top) * s))
+    return tuple(pts)
+
 
 _SQ = 1.0 / math.sqrt(2.0)
+
+CONSTELLATIONS: dict[str, Constellation] = {
+    "BPSK": Constellation("BPSK", 1, ((1.0, 0.0), (-1.0, 0.0))),
+    "QPSK": Constellation("QPSK", 2, ((_SQ, _SQ), (-_SQ, _SQ), (-_SQ, -_SQ), (_SQ, -_SQ))),
+    "QAM16": Constellation("QAM16", 4, _square_qam_points(2)),
+    "QAM64": Constellation("QAM64", 6, _square_qam_points(3)),  # the extension mode
+}
 
 
 def bits_per_symbol(mode: ModemMode) -> int:
     """Payload bits per OFDM symbol (data bins x bits per point)."""
-    return mode.profile.num_data_subs * BPS[mode.constellation]
+    return mode.profile.num_data_subs * CONSTELLATIONS[mode.constellation].bps
 
 
 def qam_scale(name: str) -> float:
-    """Half the level spacing of a square QAM, in float64, computed as the
-    reference builds its point table: max level (top * s) over top."""
-    bpa = BPS[name] // 2
-    m = 1 << bpa
-    top = m - 1
-    levels = [2 * g - top for g in range(m)]
-    s = 1.0 / math.sqrt(2 * sum(l * l for l in levels) / m)
-    return (top * s) / top
+    """Half the level spacing of a square QAM, in float64: the largest level
+    of its point table over the top level index, as the reference slices."""
+    c = CONSTELLATIONS[name]
+    top = (1 << (c.bps // 2)) - 1
+    return float(c.points_np()[:, 0].max() / top)
 
 
 def map_bits(name: str, bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """MSB-first bits [..., n*bps] -> (re, im), each [..., n] float32."""
-    bps = BPS[name]
+    bps = CONSTELLATIONS[name].bps
     *lead, nb = bits.shape
     groups = bits.reshape(*lead, nb // bps, bps).to(torch.int32)
     if name == "BPSK":
@@ -96,7 +135,7 @@ def demap(name: str, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
         b1 = b0 ^ (re < 0).to(torch.int8)
         bits = torch.stack([b0, b1], dim=-1)
         return bits.reshape(*bits.shape[:-2], bits.shape[-2] * 2)
-    bps = BPS[name]
+    bps = CONSTELLATIONS[name].bps
     bpa = bps // 2
     top = (1 << bpa) - 1
     scale = qam_scale(name)

@@ -99,13 +99,19 @@ def shard_rows(n: int, mesh: StreamMesh) -> int:
     return n // mesh.size
 
 
+def batch_sharding(mesh: StreamMesh, n: int) -> tuple[tuple[torch.device, slice], ...]:
+    """Leading-axis (stream-batch) sharding of an ``n``-row batch over
+    ``STREAM_AXIS``: each mesh device, in shard order, with the contiguous
+    slab of rows it holds."""
+    rows = shard_rows(n, mesh)
+    return tuple((dev, slice(k * rows, (k + 1) * rows)) for k, dev in enumerate(mesh.devices))
+
+
 def shard_batch(x: "np.ndarray | torch.Tensor", mesh: StreamMesh) -> Sharded:
-    """Place a batch on the mesh: contiguous leading-axis slabs, one per mesh
-    device (one upload per shard from the host; a view where the slab
-    already lies on its device)."""
+    """Place a batch on the mesh by ``batch_sharding`` (one upload per shard
+    from the host; a view where the slab already lies on its device)."""
     x = torch.as_tensor(x)
-    rows = shard_rows(x.shape[0], mesh)
-    return Sharded(mesh, tuple(x[k * rows : (k + 1) * rows].to(dev) for k, dev in enumerate(mesh.devices)))
+    return Sharded(mesh, tuple(x[rows].to(dev) for dev, rows in batch_sharding(mesh, x.shape[0])))
 
 
 def replicated(x: "np.ndarray | torch.Tensor", mesh: StreamMesh) -> tuple[torch.Tensor, ...]:

@@ -188,7 +188,7 @@ def passed(record: dict) -> bool:
 def write_record(record: dict, out: "str | Path") -> None:
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(record, indent=2))
+    out.write_text(json.dumps(record, indent=2) + "\n")
 
 
 def parse_mesh(spec: str):

@@ -107,6 +107,15 @@ def run_session(per_mb: float, n: int, fec: bool, seed: int, snr_db: float, dev:
         return s.assembler.missing_chunks() if s.meta_received else list(range(n_chunks))
 
     missing_after_1 = [missing(s) for s in rx.streams]
+
+    def crc_since(before: list[int]) -> tuple[int, list[int]]:
+        """CRC errors the streams counted since ``before`` (a stream's first
+        metadata frame restarts its count), and the counts now."""
+        now = [s.assembler.crc_errors for s in rx.streams]
+        return sum(c - b if c >= b else c for c, b in zip(now, before)), now
+
+    crc_round, crc_seen = crc_since([0] * n)
+    crc_per_round = [crc_round]
     log(f"[fec={fec}] round 1 in {round1_s:.1f} s; missing {sum(map(len, missing_after_1))} chunks "
         f"(dropouts hit {sum(map(len, injected))})")
 
@@ -114,7 +123,7 @@ def run_session(per_mb: float, n: int, fec: bool, seed: int, snr_db: float, dev:
         body = framing.build_data_chunk_payload(f[s * chunk : (s + 1) * chunk], s)
         return framing.wrap_fec(body) if fec else body
 
-    rounds, resent = 1, []
+    rounds, resent = 1, [0]  # one count a round; the first transmission resends nothing
     pre_m = p.silence_pre_chunk(True)
     while rounds < MAX_ROUNDS:
         requests = {}
@@ -157,6 +166,8 @@ def run_session(per_mb: float, n: int, fec: bool, seed: int, snr_db: float, dev:
                 buf[i, : len(seg)] = seg
             rx.process_blocks(buf)
         rx.flush()
+        crc_round, crc_seen = crc_since(crc_seen)
+        crc_per_round.append(crc_round)
         log(f"[fec={fec}] ARQ round {rounds}: resent {resent[-1]} chunks to {len(requests)} streams")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -172,7 +183,8 @@ def run_session(per_mb: float, n: int, fec: bool, seed: int, snr_db: float, dev:
         "missing_after_round1": sum(map(len, missing_after_1)),
         "arq_rounds": rounds,
         "resend_counts_per_round": resent,
-        "crc_errors": sum(s.assembler.crc_errors for s in rx.streams),
+        "crc_errors": sum(crc_per_round),
+        "crc_errors_per_round": crc_per_round,
         "incomplete_streams": [i for i, r in enumerate(results) if not r["complete"]],
         "payload_bitexact": all(r["complete"] and r["data"] == files[i % n_sig] for i, r in enumerate(results)),
         "round1_s": round1_s,

@@ -14,7 +14,9 @@ streams fed in lockstep blocks of 65,536 samples; BASELINE config 5), and
 the application layer on top of them (the CLI, play | listen over a pipe,
 single-stream and 64-stream selective-repeat ARQ, the BER curve), the
 receiver sharded over a mesh, the driver entry points and a multi-process
-torch.distributed group, and the config-5 soaks and the demo.
+torch.distributed group, the config-5 soaks and the demo, and the JAX
+package's test contract (BASELINE configs 1 and 4, the edge cases, the
+golden WAVs).
 Phases, one line each:
 
   1. card (nvidia-smi name and power limit), torch and CUDA versions
@@ -152,9 +154,28 @@ Phases, one line each:
      rows), at 64 rows by phase 17's; kernel B bit for bit, on the long
      BPSK-NARROW and 32 KB QPSK frames too; the streaming demod by phase
      20's rule
+ 25. the JAX package's test contract (tests/test_torch_roundtrip.py,
+     test_torch_edge_cases.py, test_torch_decoder.py) on the card, each
+     decode with launch counts from zero and its result equal to the
+     port's own CPU decode of the same host audio (every field of the
+     frame, preamble_idx, fine_metric within 1e-5), stream_demod launched
+     at least once a decode: the five golden WAVs of tests/golden (the
+     manifest's file name and sha256); BASELINE config 1 (1 KB, one
+     BPSK-NARROW frame from the card's TX, clean); config 4 (2,000 bytes of
+     16-QAM through echoes, gain, DC and AWGN, as its CPU test makes it)
+     exact at 28 and 22 dB, failing its CRC at 18 dB; one byte; an empty
+     file ("Invalid data length"); 205, 410 and 1,025-byte payloads that
+     fill their symbols; 200, 253 and 300-byte names (the last collides
+     with a frame magic); a frame behind a lag-periodic decoy, through
+     api.decode and decoder.decode_raw (the scan's resume); two-chunk
+     transfers in 16-QAM, BPSK-REPEAT and 64-QAM through
+     api.decode_chunked (once a frame). Then the streaming demod against
+     its plain version on every input of those decodes (phase 20's rule),
+     the phase's wall, and the host wall of api.decode for config 1 and
+     config 4 at 28 dB (median of 10 after a warm call)
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15 and 17-24, each counted from zero,
+the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero,
 the bound: bytes over the card's memory rate or float32 operations over
 its float32 peak, whichever is larger, from this run's shapes, each DFT
 counted at the cost of a real-input FFT; audio_modem_tpu_torch/roofline.py
@@ -590,12 +611,12 @@ def boundary_margin(name: str, re, im):
     and QPSK, the midpoints between levels for square QAM."""
     import torch
 
-    from audio_modem_tpu_torch.ops.constellations import BPS, qam_scale
+    from audio_modem_tpu_torch.ops.constellations import CONSTELLATIONS, qam_scale
 
     if name in ("BPSK", "QPSK"):
         bounds = torch.zeros(1, device=re.device)
     else:
-        top = (1 << (BPS[name] // 2)) - 1
+        top = (1 << (CONSTELLATIONS[name].bps // 2)) - 1
         bounds = qam_scale(name) * (2 * torch.arange(top, device=re.device) + 1 - top)
     axes = (re,) if name == "BPSK" else (re, im)
     return torch.stack([(x[..., None] - bounds).abs().amin(-1) for x in axes]).amin(0)
@@ -629,7 +650,8 @@ def plain_receive(sig, n_valid, min_pos, mode, max_syms: int, rows: int = 512) -
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = ()) -> tuple[float, str]:
+def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = (),
+                      stream_errs: "list | None" = None) -> tuple[float, str]:
     """Kernels A and B and the streaming demod against their plain versions on
     every input that ``path_inputs`` kept: A by
     ``compare_receive(by_frame=True)``, B by equal bits over the frame's
@@ -642,7 +664,9 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
     boundary (``b_points``). Under a tag in ``clean`` (noiseless frames)
     A is held bit for bit as well, on every detected row's symbols that
     carry signal (``signal_symbols``); flips in its junk symbols are
-    reported. Returns (largest fine or channel error, a report)."""
+    reported. The streaming demod's largest bit difference on the symbols
+    that carry signal goes to ``stream_errs``, one entry an input, where a
+    list is given. Returns (largest fine or channel error, a report)."""
     import torch
 
     from audio_modem_tpu_torch.kernels import receive
@@ -691,6 +715,8 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
             flips, junk = int(flipped[carry].sum().item()), int(flipped[~carry].sum().item())
             if flips or out.shape != ref.shape:
                 fail(f"{label}: stream_demod at {where} flips {flips} bits against its plain version")
+            if stream_errs is not None:
+                stream_errs.append(float(flipped[carry].any().item()))
             parts.append(f"stream_demod at {where} {mode.name}: flipped bits {flips} of "
                          f"{int(flipped[carry].numel())} in the {int(carry.sum().item())} symbols that carry "
                          f"signal; {junk} of {int(flipped[~carry].numel())} in {int((~carry).sum().item())} junk "
@@ -1157,6 +1183,158 @@ def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
             f"{json.dumps(last)}; " + ", ".join(f"{k} {d[k]}" for k in BENCH_RATES)
             + f", per_mode_msps {json.dumps(d['per_mode_msps'])}; roofline: {shares}; launches {counts}")
     return Counter(counts), line, tuple({k[1] for k in store if k[1].endswith(" clean")})
+
+
+GOLDEN = ROOT / "tests" / "golden"
+
+
+def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
+    """Phase 25: the JAX package's test contract on the card. Each input is
+    host audio (``tests/golden``'s WAVs, or made by the port, on the card
+    unless its CPU test makes it on the CPU), decoded with ``device=dev`` and
+    again with ``device="cpu"``: the card's result must equal the CPU's
+    (every field of the frame or the chunked result, preamble_idx,
+    fine_metric within 1e-5) and pass the JAX test's own assertion, with
+    ``stream_demod`` launched at least once a decode, once a frame for
+    ``decode_chunked``, counted from zero for each. The streaming demod's
+    inputs go to ``store`` under each case's label. Returns (launches, line,
+    host walls in ms of ten ``api.decode`` calls after a warm one, for
+    config 1 and for config 4 at 28 dB, with their signals' lengths)."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio_modem_tpu_torch import MODES, api, channel, decoder, framing
+    from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from audio_modem_tpu_torch.utils.wav import read_wav
+
+    def legacy(data: bytes, name: str, file_name: str) -> np.ndarray:
+        return api.encode_legacy(data, name, file_name, device=dev).cpu().numpy()
+
+    def exact(data: bytes, file_name: "str | None" = None):
+        return lambda r: (isinstance(r, framing.LegacyFrame) and r.crc_valid and r.data == data
+                          and file_name in (None, r.file_name))
+
+    def fails_crc(r) -> bool:
+        return not (isinstance(r, framing.LegacyFrame) and r.crc_valid)
+
+    def describe(r) -> str:
+        if isinstance(r, framing.FrameError):
+            return f"FrameError({r.error!r})"
+        return f"{type(r).__name__} crc_valid={r.crc_valid} {len(r.data)} B"
+
+    def on_card(fn, label: str):
+        """``fn()`` with launch counts from zero and the streaming demod's
+        inputs kept under ``label``; returns (its result, the launches)."""
+        with path_inputs(store, label):
+            reset_launch_counts()
+            out = fn()
+            counts = launch_counts()
+        if counts["stream_demod"] < 1:
+            fail(f"phase 25 {label}: stream_demod never launched: {counts}")
+        return out, counts
+
+    cases = []  # (label, mode name, host signal, the JAX test's assertion)
+    manifest = json.loads((GOLDEN / "manifest.json").read_text())
+    for name, entry in sorted(manifest.items()):
+        sig, rate = read_wav(str(GOLDEN / entry["wav"]))
+        if rate != 44100 or len(sig) != entry["samples"]:
+            fail(f"phase 25: {entry['wav']} holds {len(sig)} samples at {rate} Hz")
+        cases.append((f"golden {entry['wav']}", name, sig,
+                      lambda r, e=entry: (isinstance(r, framing.LegacyFrame) and r.crc_valid
+                                          and r.file_name == e["file_name"]
+                                          and hashlib.sha256(r.data).hexdigest() == e["sha256"])))
+    data1 = np.random.default_rng(SEED + 25).bytes(1024)
+    sig1 = legacy(data1, "BPSK-NARROW", "config1.bin")
+    cases.append(("config 1", "BPSK-NARROW", sig1, exact(data1, "config1.bin")))
+    # config 4 exactly as tests/test_torch_decoder.py makes it: TX and channel on the CPU
+    data4 = np.random.default_rng(47).bytes(2000)
+    tx4 = api.encode_legacy(data4, "16-QAM", "mp.bin", device="cpu").numpy()
+    sig4 = {}
+    for snr in (28.0, 22.0, 18.0):
+        spec = channel.ChannelSpec(snr_db=snr, multipath=((23, 0.25), (61, 0.12)), gain=0.7, dc_offset=0.01)
+        sig4[snr] = channel.apply_channel_np(tx4, spec, seed=2, device="cpu")
+        cases.append((f"config 4 at {snr:.0f} dB", "16-QAM", sig4[snr], exact(data4) if snr > 20 else fails_crc))
+    cases.append(("one byte", "QPSK", legacy(b"\x42", "QPSK", "a"), exact(b"\x42")))
+    cases.append(("empty", "QPSK", legacy(b"", "QPSK", "empty"),
+                  lambda r: isinstance(r, framing.FrameError) and "Invalid data length" in r.error))
+    for total in (205, 410, 1025):  # payloads that fill their QPSK symbols (410 bits) exactly
+        data = b"z" * (total - 13)  # name length, "abcd", data length and CRC: 13 bytes
+        cases.append((f"symbol-exact {total}", "QPSK", legacy(data, "QPSK", "abcd"), exact(data, "abcd")))
+    for file_name, check in (("п" * 100, exact(b"x" * 50, "п" * 100)), ("n" * 253, exact(b"x" * 50, "n" * 253)),
+                             ("n" * 300, fails_crc)):  # 300 bytes truncate to 255: the name length collides with 0xFF
+        cases.append((f"{len(file_name.encode())}-byte name", "QPSK", legacy(b"x" * 50, "QPSK", file_name), check))
+    qpsk = MODES["QPSK"]
+    p = qpsk.profile
+    data_d = np.random.default_rng(11).bytes(400)
+    t = np.arange(2 * p.fft_size)
+    decoy = (0.4 * np.sin(2 * np.pi * 4 * t / p.fft_size)).astype(np.float32)  # inactive bin 4: lag-periodic
+    composite = np.concatenate([decoy, np.zeros(2 * p.fft_size, np.float32), legacy(data_d, "QPSK", "d.bin")])
+    cases.append(("decoy resume", "QPSK", composite, exact(data_d, "d.bin")))
+
+    total_counts: Counter = Counter()
+    parts, worst_fine = [], 0.0
+    for label, name, sig, check in cases:
+        ref, rinfo = api.decode(sig, name, device="cpu")
+        (out, info), counts = on_card(lambda: api.decode(sig, name, device=dev), label)
+        total_counts.update(counts)
+        if type(out).__name__ != type(ref).__name__ or dataclasses.asdict(out) != dataclasses.asdict(ref):
+            fail(f"phase 25 {label}: the card gave {describe(out)}, the CPU {describe(ref)}")
+        if (info is None) != (rinfo is None):
+            fail(f"phase 25 {label}: sync info {info} on the card, {rinfo} on the CPU")
+        if info is not None:
+            worst_fine = max(worst_fine, abs(info.fine_metric - rinfo.fine_metric))
+            if info.preamble_idx != rinfo.preamble_idx or abs(info.fine_metric - rinfo.fine_metric) > 1e-5:
+                fail(f"phase 25 {label}: preamble {info.preamble_idx} / fine {info.fine_metric} on the card, "
+                     f"{rinfo.preamble_idx} / {rinfo.fine_metric} on the CPU")
+        if not check(out):
+            fail(f"phase 25 {label}: {describe(out)}")
+        parts.append(f"{label} ({len(sig)} samples, {name}): {describe(out)}"
+                     + (f" at {info.preamble_idx}" if info is not None else "") + f", stream_demod x{counts['stream_demod']}")
+
+    # the decoy resume without the xcorr fallback: decode_raw alone, payload bytes equal
+    (raw, info), counts = on_card(lambda: decoder.decode_raw(composite, qpsk, device=dev), "decoy raw")
+    total_counts.update(counts)
+    rraw, rinfo = decoder.decode_raw(composite, qpsk, device="cpu")
+    payload = framing.build_legacy_payload(data_d, "d.bin")
+    if not (isinstance(raw, bytes) and isinstance(rraw, bytes) and raw[: len(payload)] == rraw[: len(payload)] == payload
+            and info.preamble_idx == rinfo.preamble_idx >= len(decoy)
+            and abs(info.fine_metric - rinfo.fine_metric) <= 1e-5):
+        fail(f"phase 25 decoy: decode_raw gave {type(raw).__name__} at {getattr(info, 'preamble_idx', None)} on the "
+             f"card, {type(rraw).__name__} at {getattr(rinfo, 'preamble_idx', None)} on the CPU")
+    parts.append(f"decoy decode_raw: payload exact past the decoy at {info.preamble_idx}")
+
+    for name in ("16-QAM", "BPSK-REPEAT", "64-QAM"):  # two chunks: metadata + 2 data frames
+        mode = MODES[name]
+        data = np.random.default_rng(7).bytes(mode.chunk_size + 63)
+        sig = np.concatenate(chunked_frames(data, name, "m.bin", dev))
+        ref = api.decode_chunked(sig, name, device="cpu")
+        out, counts = on_card(lambda: api.decode_chunked(sig, name, device=dev), f"chunked {name}")
+        total_counts.update(counts)
+        if not isinstance(out, api.ChunkedDecodeResult) or dataclasses.asdict(out) != dataclasses.asdict(ref):
+            fail(f"phase 25 chunked {name}: the card gave {out}, the CPU {ref}")
+        if not (out.complete and out.data == data) or counts["stream_demod"] < 3:
+            fail(f"phase 25 chunked {name}: missing {out.missing_chunks}, launches {counts}")
+        parts.append(f"chunked {name} ({len(sig)} samples): {len(data)} exact bytes in {out.total_chunks} chunks, "
+                     f"stream_demod x{counts['stream_demod']}")
+
+    kept = {k[1] for k in store if k[0] == "stream_demod"}
+    unkept = [c[0] for c in cases if c[0] not in kept]
+    if unkept:
+        fail(f"phase 25: no streaming-demod input kept for {unkept}")
+
+    walls = {}
+    for label, name, sig in (("config 1", "BPSK-NARROW", sig1), ("config 4 at 28 dB", "16-QAM", sig4[28.0])):
+        api.decode(sig, name, device=dev)
+        runs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            api.decode(sig, name, device=dev)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        walls[label] = (len(sig), runs)
+    line = (f"{len(cases) + 4} decodes equal to the CPU's (largest fine_metric difference {worst_fine:.3e}, tol "
+            f"1e-5); " + "; ".join(parts) + f"; launches {dict(total_counts)}")
+    return total_counts, line, walls
 
 
 class CliRun:
@@ -1845,9 +2023,23 @@ def main() -> None:
     print(f"phase 24 kernels against their plain versions at every shape and mode of the bench: {checked}", flush=True)
     del bench_inputs
 
+    # 25. the JAX package's test contract on the card
+    t25 = time.perf_counter()
+    contract_inputs: dict = {}
+    launches25, line, walls25 = contract_phase(dev, contract_inputs)
+    print(f"phase 25 contract {card}: {line}", flush=True)
+    stream_errs25: list = []
+    _, checked = check_path_inputs("phase 25", contract_inputs, stream_errs=stream_errs25)
+    print(f"phase 25 streaming demod against its plain version on the inputs of phase 25: {checked}", flush=True)
+    del contract_inputs
+    print(f"phase 25 walls {card}: phase {time.perf_counter() - t25:.2f} s; host wall of api.decode, median of 10 "
+          f"after a warm call: " + "; ".join(
+              f"{label} ({n} samples) {statistics.median(runs):.3f} ms (runs {', '.join(f'{w:.3f}' for w in runs)})"
+              for label, (n, runs) in walls25.items()), flush=True)
+
     batch_launches = (launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
-                      + launches24)
-    print(f"phases 1-24 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+                      + launches24 + launches25)
+    print(f"phases 1-25 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
@@ -1864,7 +2056,7 @@ def main() -> None:
         {"name": "stream_demod", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:666, :728",
          "launches": stream_launches + batch_launches["stream_demod"],
-         "max_abs_err": float(err_s), "ms": ms_s, "plain_ms": plain_ms_s,
+         "max_abs_err": max([float(err_s), *stream_errs25]), "ms": ms_s, "plain_ms": plain_ms_s,
          "bound_ms": bound_s[0], "bound_by": bound_s[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {

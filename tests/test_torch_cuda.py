@@ -292,6 +292,13 @@ def _decode_case(case: str):
         mode = MODES["QPSK"]
         payload = np.random.default_rng(12).bytes(2000)
         return framing.build_transmit_signal(payload, mode, "c.bin", device="cpu").numpy(), mode, {}, payload
+    if case.startswith("config4"):  # BASELINE config 4: 16-QAM through multipath, at 28 or 22 dB
+        mode = MODES["16-QAM"]
+        payload = np.random.default_rng(47).bytes(2000)
+        sig = framing.build_transmit_signal(payload, mode, "mp.bin", device="cpu").numpy()
+        spec = channel.ChannelSpec(snr_db=float(case[-2:]), multipath=((23, 0.25), (61, 0.12)), gain=0.7,
+                                   dc_offset=0.01)
+        return channel.apply_channel_np(sig, spec, seed=2, device="cpu"), mode, {}, payload
     if case == "tracked":  # without the tracker the CRC fails at this drift
         mode = MODES["BPSK-ACOUSTIC"]
         payload = np.random.default_rng(11).bytes(5200)
@@ -318,7 +325,7 @@ def _decode_case(case: str):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["clean", "soft", "xcorr", "fec", "tracked"])
+@pytest.mark.parametrize("case", ["clean", "soft", "xcorr", "fec", "tracked", "config4-28", "config4-22"])
 def test_api_decode_on_card_matches_cpu(cuda_device, case):
     """Every rung of the decoder's retry ladder on the card gives what the
     plain path gives on the CPU, through the streaming-demod kernel."""

@@ -1,9 +1,9 @@
 """The port's single-signal decode path against the JAX package on the same
 numpy signals: api.decode / decoder.decode_signal through every rung of the
-retry ladder (clean frames, soft repetition combining, FEC erasures from
-EVM, xcorr re-acquisition, timing tracking), decode_chunk_frame, the
-single-frame TX within 3e-5, and the phy / sync / bits tools the ladder
-uses. Noise and clock drift come from the port's channel module, and
+retry ladder (clean frames, BASELINE config 4's multipath, soft
+repetition combining, FEC erasures from EVM, xcorr re-acquisition, timing
+tracking), decode_chunk_frame, the single-frame TX within 3e-5, and the
+phy / sync / bits tools the ladder uses. Noise and clock drift come from the port's channel module, and
 both packages decode the same samples.
 
 Parse result type, crc_valid, bytes, preamble_idx and coarse_idx must be
@@ -67,6 +67,23 @@ def test_clean_legacy_frame(name):
     assert len(ours_tx) == 1 and np.abs(ours_tx[0].numpy() - sig).max() < 3e-5
     result, _ = _same_decode(sig, mode)
     assert isinstance(result, framing.LegacyFrame) and result.crc_valid and result.data == data
+
+
+@pytest.mark.parametrize("snr, exact", [(28.0, True), (22.0, True), (18.0, False)])
+def test_config4_qam16_through_multipath(snr, exact):
+    """BASELINE config 4 (tests/test_streaming.py:211-222): 2,000 seeded
+    bytes as a 16-QAM legacy frame through echoes (23, 0.25) and (61, 0.12),
+    gain 0.7, DC 0.01 and AWGN (seed 2). Both packages decode the exact
+    bytes at 28 and 22 dB, and both fail the CRC at 18 dB."""
+    mode = MODES["16-QAM"]
+    data = np.random.default_rng(47).bytes(2000)
+    sig = api.encode_legacy(data, mode, "mp.bin", device="cpu").numpy()
+    assert np.abs(sig - japi.encode_legacy(data, _j(mode), "mp.bin")).max() < 3e-5
+    spec = channel.ChannelSpec(snr_db=snr, multipath=((23, 0.25), (61, 0.12)), gain=0.7, dc_offset=0.01)
+    result, info = _same_decode(channel.apply_channel_np(sig, spec, seed=2, device="cpu"), mode)
+    assert isinstance(result, framing.LegacyFrame) and result.crc_valid == exact
+    assert (result.data == data) == exact
+    assert info.preamble_idx == mode.profile.silence_pre_legacy()
 
 
 def test_soft_retry_rescues_bpsk_repeat():

@@ -14,7 +14,11 @@ from audio_modem_tpu.configs import MODES as JMODES, OFDM_PROFILES as JPROFILES
 from audio_modem_tpu.ops import bits as jbits
 from audio_modem_tpu.ops import constellations as jcon
 from audio_modem_tpu.ops import dft as jdft
+import audio_modem_tpu as jpkg
+import audio_modem_tpu_torch as tpkg
+from audio_modem_tpu.parallel import mesh as jmesh
 from audio_modem_tpu_torch import framing, phy, sync, tables
+from audio_modem_tpu_torch.parallel import mesh
 from audio_modem_tpu_torch.configs import MODES, OFDM_PROFILES
 from audio_modem_tpu_torch.ops import bits, constellations
 
@@ -72,7 +76,7 @@ def test_tables_from_jax_arrays_equal_profile_tables(name):
 def test_map_bits_and_demap(name):
     mode = MODES[name]
     c = mode.constellation
-    bps = constellations.BPS[c]
+    bps = constellations.CONSTELLATIONS[c].bps
     assert bps == mode.bps == JMODES[name].bps
     assert constellations.bits_per_symbol(mode) == mode.bits_per_symbol == JMODES[name].bits_per_symbol
     rng = np.random.default_rng(3)
@@ -85,6 +89,57 @@ def test_map_bits_and_demap(name):
     jd = np.asarray(jcon.demap(c, jnp.asarray(nre), jnp.asarray(nim)))
     assert np.array_equal(jd, constellations.demap(c, _t(nre), _t(nim)).numpy())
     assert np.array_equal(constellations.demap(c, re, im).numpy(), b)
+
+
+def test_package_version_and_profiles():
+    assert tpkg.__version__ == jpkg.__version__
+    assert sorted(tpkg.OFDM_PROFILES) == sorted(jpkg.OFDM_PROFILES)
+    for name, p in tpkg.OFDM_PROFILES.items():
+        assert (p.name, p.cp_len, p.sub_start, p.sub_end, p.pilots) == (
+            jpkg.OFDM_PROFILES[name].name, jpkg.OFDM_PROFILES[name].cp_len, jpkg.OFDM_PROFILES[name].sub_start,
+            jpkg.OFDM_PROFILES[name].sub_end, jpkg.OFDM_PROFILES[name].pilots)
+    assert set(tpkg.__all__) == set(jpkg.__all__) | {"assert_full_fp32"}
+
+
+@pytest.mark.parametrize("name", sorted(jcon.CONSTELLATIONS))
+def test_constellation_tables(name):
+    """Equal point tables, bits per point and sizes; the demap's level
+    spacing is the JAX package's (the max level of the table over top)."""
+    ours, ref = constellations.CONSTELLATIONS[name], jcon.CONSTELLATIONS[name]
+    assert (ours.name, ours.bps, ours.n_points) == (ref.name, ref.bps, ref.n_points)
+    assert ours.points == ref.points
+    assert np.array_equal(ours.points_np(), ref.points_np())
+    if ours.bps > 2:
+        top = (1 << (ours.bps // 2)) - 1
+        assert constellations.qam_scale(name) == float(ref.points_np()[:, 0].max() / top)
+    assert sorted(constellations.CONSTELLATIONS) == sorted(jcon.CONSTELLATIONS)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3])
+def test_repeat_bits(rep):
+    rng = np.random.default_rng(rep)
+    b = rng.integers(0, 2, 37).astype(np.int8)
+    assert np.array_equal(bits.repeat_bits(_t(b), rep).numpy(), jbits.repeat_bits(b, rep))
+    rows = rng.integers(0, 2, (3, 11)).astype(np.int8)
+    assert np.array_equal(bits.repeat_bits(_t(rows), rep).numpy(), np.stack([jbits.repeat_bits(r, rep) for r in rows]))
+    assert np.array_equal(bits.majority_vote(bits.repeat_bits(_t(b), rep), rep).numpy(), b)
+
+
+@pytest.mark.parametrize("n_dev, n", [(8, 64), (2, 6), (1, 5)])
+def test_batch_sharding_matches_jax(n_dev, n):
+    """Each mesh device holds the rows that the JAX package's leading-axis
+    sharding gives the device of the same shard index."""
+    jm = jmesh.make_mesh(n_dev)
+    jidx = jmesh.batch_sharding(jm).devices_indices_map((n, 3))
+    ours = mesh.batch_sharding(mesh.make_mesh(devices=["cpu"] * n_dev), n)
+    assert len(ours) == n_dev
+    for (dev, rows), jdev in zip(ours, jm.devices.flat):
+        jrows = jidx[jdev][0]
+        assert dev == torch.device("cpu")
+        assert (rows.start, rows.stop) == (jrows.start or 0, n if jrows.stop is None else jrows.stop)
+    x = torch.arange(n * 3).reshape(n, 3)
+    sharded = mesh.shard_batch(x, mesh.make_mesh(devices=["cpu"] * n_dev))
+    assert all(torch.equal(s, x[rows]) for s, (_, rows) in zip(sharded.shards, ours))
 
 
 @pytest.mark.parametrize("rep", [1, 2, 3])

@@ -3,6 +3,8 @@ device-synthesized signal against ``api.encode_chunked``, the soak (plain
 and over a virtual mesh), the lossy-channel ARQ soak, the consume
 microbench and the demo."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,8 @@ def test_tiny_soak_is_exact(mesh_devices, tmp_path):
     assert record["device"] == "cpu" and record["config"]["mesh"] == (["cpu"] * 4 if mesh else None)
     assert record["stage_breakdown"]["multi_consume"]["calls"] >= 1
     soak.write_record(record, tmp_path / "soak.json")
-    assert (tmp_path / "soak.json").read_text().startswith("{")
+    text = (tmp_path / "soak.json").read_text()
+    assert text.startswith("{") and text.endswith("}\n") and json.loads(text)["chunks_received"] == 8 * 3
 
 
 def test_soak_main_writes_its_record(tmp_path):
@@ -53,6 +56,10 @@ def test_tiny_lossy_soak_completes_every_stream():
     for s in record["sessions"]:
         assert s["incomplete_streams"] == [] and s["payload_bitexact"]
         assert s["missing_after_round1"] > 0 and s["arq_rounds"] >= 2  # the dropouts cost chunks, ARQ brings them back
+        # one entry a round that arq_rounds counts, the first transmission's included
+        assert len(s["resend_counts_per_round"]) == len(s["crc_errors_per_round"]) == s["arq_rounds"]
+        assert s["resend_counts_per_round"][0] == 0 and all(c > 0 for c in s["resend_counts_per_round"][1:])
+        assert sum(s["crc_errors_per_round"]) == s["crc_errors"] and min(s["crc_errors_per_round"]) >= 0
 
 
 def test_bench_consume_stores_every_chunk():

@@ -9,8 +9,8 @@ csrc/receive.cu, ``amtpu_decode_fused``, six launches), kernel B
 
 Inputs as chip_smoke.py builds them: the turbo round's slot 0 (64 QPSK
 windows of 914,688 samples, max_syms 41) and its 64 frame-aligned frames,
-BASELINE config 2 at B = 1 (7,913,472 samples, 12,361 symbols) and its data
-region, and 64 BPSK-NARROW 512-byte chunk frames (598 symbols). For each,
+BASELINE config 2 at B = 1 (7,913,472 samples, 12,361 symbols; kernel A
+and its plain version) and its data region, and 64 BPSK-NARROW 512-byte chunk frames (598 symbols). For each,
 the whole call from CUDA events (median of ``--reps``), then every kernel's
 mean device time per call, and for the two stages of kernel A that stream
 the window (pre_stats, scan) the rate at which they read it. Beside each
@@ -312,6 +312,8 @@ def main() -> None:
              torch.zeros(1, dtype=torch.int32, device=dev), mode2, ms2)
     profile_call(f"kernel A, config 2 at B = 1 [1, {padded2.shape[0]}]",
                  lambda: receive.decode_fused(*args2), reps, padded2.numel() * 4)
+    profile_call(f"kernel A's plain version, config 2 at B = 1 [1, {padded2.shape[0]}]",
+                 lambda: receive.decode_fused_reference(*args2), reps)
     head, region = receive._front_end(*args2)
     ones = torch.ones(1, dtype=torch.float32, device=dev)
     profile_call(f"streaming demod, config 2 ({ms2} symbols)",
