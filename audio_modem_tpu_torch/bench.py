@@ -7,8 +7,9 @@ of the root ``bench.py``, at its sizes, through the port's entry points.
 Prints ONE JSON line last on stdout, with four keys:
   metric       streaming demod Msamples/s on one card: the steady-state
                turbo round (``parallel.multi_receiver._batch_window_decode_multi``,
-               64 QPSK streams x 32 frames a round: kernel A for slot 0, the
-               plain cadence-predicted slots after it), every slot detected,
+               64 QPSK streams x 32 frames a round: kernel A for slot 0,
+               kernel C for the cadence-predicted slots after it, where the
+               CPU runs their plain versions), every slot detected,
                CRC-valid and in sequence
   value, unit  the rate, "Msamples/s"
   vs_baseline  value / 44.1: multiples of the BASELINE.json target of 1000x
@@ -28,7 +29,9 @@ Times are host wall clock around work that ends in
 ``torch.cuda.synchronize()``, the best of several runs as the root bench
 takes them; ``p50_detect_latency_device_ms`` comes from CUDA events. The
 roofline (``roofline.py``) sets kernel A at the batch4096 rate, kernel B at
-the frame_demod rate and the streaming demod at the long-frame rate against
+the frame_demod rate, kernel C at its own rate on the headline's windows
+(``predicted_kernel_msps``: all 32 slots predicted, the receiver's steady
+state) and the streaming demod at the long-frame rate against
 the card's published memory rate and float32 peak; a card without published
 peaks gets null shares. On the CPU (``device="cpu"``, as the tests run it at
 small sizes) every kernel wrapper runs its plain version, the metric says
@@ -55,7 +58,8 @@ from audio_modem_tpu_torch.kernels import receive, resolve_device
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
-from audio_modem_tpu_torch.parallel.multi_receiver import BatchReceiver, _batch_window_decode_multi, _classify_round
+from audio_modem_tpu_torch.parallel.multi_receiver import (BatchReceiver, _batch_window_decode_multi, _classify_round,
+                                                          _unpack_round)
 
 BASELINE_MSPS = 44.1  # BASELINE.json: 1000x real time at 44.1 kHz
 DETAILS_PATH = Path(__file__).resolve().parent.parent / "docs" / "bench_torch_local.json"
@@ -243,6 +247,13 @@ class _Bench:
         _require(bool((seq == np.arange(k)[None, :]).all()), "turbo seq mismatch")
         self.log("timing K-frame turbo rounds")
         dt = self.best_s(rnd, 5)
+        # kernel C alone on the same windows, every slot predicted from slot 0's start
+        start0 = torch.from_numpy(_unpack_round(rnd().cpu().numpy())[1][:, 0].astype(np.int32)).to(self.dev) - cadence
+        ok0 = torch.ones(n, dtype=torch.bool, device=self.dev)
+        dt_c = self.best_s(lambda: receive.decode_predicted(windows, nvt, start0, ok0, m, n_sym, k, cadence), 5)
+        d["predicted_kernel_msps"] = round(windows.numel() * self.iters / dt_c / 1e6, 2)
+        self.works["C (decode_predicted) at the turbo round"] = (
+            roofline.work_decode_predicted(m, n, windows.shape[1], n_sym, k), windows.numel(), "predicted_kernel_msps")
         # samples consumed a round: K frame cadences a stream (the runtime's
         # pred_dispatch accounting)
         self.block_samples = k * cadence * n
@@ -297,8 +308,8 @@ class _Bench:
             f"at depth {self.iters}, {enq_ms:.4f} ms of it to enqueue; one such call a round would bound "
             f"{d['headline_dispatch_bound_msps']:.0f} Msps at {self.block_samples} samples a round. The measured "
             f"round takes {percall_ms:.3f} ms, {percall_ms / floor_ms:.0f} times that floor: slot 0 is one call "
-            f"of kernel A and each of the {self.k - 1} predicted slots a chain of plain PyTorch calls (refine, "
-            f"CE, demod)."
+            f"of kernel A and the {self.k - 1} predicted slots one call of kernel C (refine, CE, demod, vote and "
+            f"pack of every slot; alone, all {self.k} slots predicted, at {d.get('predicted_kernel_msps')} Msps)."
             + (f" Kernel A alone over the same frames at 4096 rows (batch4096) runs at {ceiling} Msps." if ceiling
                else ""))
 
@@ -390,7 +401,7 @@ class _Bench:
             self.works["streaming demod (stream_demod) at long_frame"] = (
                 roofline.work_stream_demod(mode, self.n, n_sym), frames.numel(), "long_frame_kernel_msps")
 
-    # ---- the roofline of the three kernels at the rates above ----
+    # ---- the roofline of the four kernels at the rates above ----
 
     def roofline(self) -> None:
         name = self.details["device"]["name"]
@@ -540,7 +551,7 @@ class _Bench:
 
     def stages(self) -> list:
         """(name, least budget left to start it, body) in the root bench's
-        order, but the roofline: it reads the three kernels' rates, so it
+        order, but the roofline: it reads the four kernels' rates, so it
         runs after the last of them."""
         rows512, rows4096 = self.batches
         return [

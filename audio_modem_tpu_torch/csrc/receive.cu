@@ -1,14 +1,16 @@
 // Receive kernels for Hopper (sm_90a): the full per-stream receive (kernel A),
-// the frame-aligned chunk demod (kernel B) and the streaming demod of a data
-// region whose channel is already known, with a plain C interface for ctypes
-// (see kernels/_build.py). A is a pipeline of six launches gridded over
-// (tiles or symbol tiles, streams); B is two launches (peak; CE and demod)
-// gridded over (chunks or symbol tiles, frames); the streaming demod one CTA
-// per (symbol tile, stream).
+// the cadence-predicted slots of a turbo round (kernel C), the frame-aligned
+// chunk demod (kernel B) and the streaming demod of a data region whose
+// channel is already known, with a plain C interface for ctypes (see
+// kernels/_build.py). A is a pipeline of six launches gridded over (tiles or
+// symbol tiles, streams); C five (A's first two, a slot chain a stream, the
+// demod over (symbol tiles, slots, streams), the pack); B is two launches
+// (peak; CE and demod) gridded over (chunks or symbol tiles, frames); the
+// streaming demod one CTA per (symbol tile, stream).
 //
-// All three end in the same demod (per symbol: DFT at the data and pilot
+// All four end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as the
-// device function demod_tile, so one rounding discipline serves all three.
+// device function demod_tile, so one rounding discipline serves all four.
 // Everything is float32. Where a sum decides the coarse
 // sync (preprocess mean, scan block and window sums) the order of additions
 // is the one the plain PyTorch version (sync.py) uses, and the arithmetic
@@ -741,6 +743,59 @@ commit_kernel(const float* __restrict__ metric_all, const float* __restrict__ ti
   if (tid == 0 && first != INT_MAX) atomicMin(first_drop + b, first);
 }
 
+// Shared memory of refine_ce: the refine region, the template, the CE body
+// and the block reductions' slots.
+struct RefineSmem {
+  float region[kMaxRegion];
+  float tmpl[kMaxSym];
+  float body[kMaxSym];
+  float redf[33];
+  int redi[33];
+};
+
+struct Refined {
+  int start;
+  float fine;
+};
+
+// The xcorr refine of ``pre`` around coarse index c >= 0 over [lo, hi] =
+// [max(c - 3cp, 0), min(nv - sym, c + 3cp)] (sync.refine_xcorr: first index
+// of the best metric, c where no offset is finite), then the CE at the
+// refined start + 2*sym into ch_re_out and ch_im_out ([n_active] each).
+// Kernel A's stage 5 and kernel C's slot chain both run it, so the two
+// cannot drift apart. Every thread of the block calls it and gets the
+// same result.
+__device__ Refined refine_ce(const PreSrc& pre, int c, const float* __restrict__ pre1, float t_energy,
+                             const Demod& d, RefineSmem& sm, float* ch_re_out, float* ch_im_out) {
+  const int tid = threadIdx.x, nt = blockDim.x, sym = d.fft + d.cp;
+  const int radius = 3 * d.cp, n_off = 2 * radius + 1;
+  const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
+  for (int i = tid; i < n_off + sym - 1; i += nt) sm.region[i] = pre(lo + i);
+  for (int i = tid; i < sym; i += nt) sm.tmpl[i] = pre1[i];
+  __syncthreads();
+  float fm = -INFINITY;
+  int dbest = INT_MAX;
+  float mloc[2] = {-INFINITY, -INFINITY};
+  for (int o = tid, r = 0; o < n_off; o += nt, ++r) {
+    float corr = 0.0f, e = 0.0f;
+    for (int j = 0; j < sym; ++j) {
+      const float v = sm.region[o + j];
+      corr = fmaf(v, sm.tmpl[j], corr);
+      e = fmaf(v, v, e);
+    }
+    const float den = sqrtf(__fmul_rn(e, t_energy));
+    if (den > kXcorrMinDenom && lo + o <= hi) mloc[r] = __fdiv_rn(corr, den);
+    fm = fmaxf(fm, mloc[r]);
+  }
+  fm = block_max(fm, sm.redf);
+  for (int o = tid, r = 0; o < n_off; o += nt, ++r)
+    if (mloc[r] == fm && isfinite(fm)) dbest = min(dbest, lo + o);
+  dbest = block_min(dbest, sm.redi);
+  const int start = isfinite(fm) ? dbest : c;
+  channel_estimate(pre, start + 2 * sym + d.cp, d, sm.body, ch_re_out, ch_im_out);
+  return Refined{start, fm};
+}
+
 // 5. best up to the first drop, xcorr refine over [lo, hi], CE
 __global__ void __launch_bounds__(kThreadsA)
 refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
@@ -749,14 +804,12 @@ refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_va
                  const float* __restrict__ tile_max, const int* __restrict__ first_drop,
                  int* start_out, int* coarse_out, float* cmetric_out, float* fine_out,
                  unsigned char* detected_out, float* ch_re_out, float* ch_im_out) {
-  __shared__ float region[kMaxRegion];
-  __shared__ float tmpl[kMaxSym];
-  __shared__ float body[kMaxSym];
-  __shared__ float redf[33];
-  __shared__ int redi[33];
+  __shared__ RefineSmem sm;
+  float* redf = sm.redf;
+  int* redi = sm.redi;
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
-  const int sym = d.fft + d.cp, na = d.n_active;
+  const int na = d.n_active;
   const float* metric = metric_all + (size_t)b * n_pos;
   const float* tm = tile_max + (size_t)b * n_tiles;
 
@@ -784,41 +837,15 @@ refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_va
     }
   kbest = block_min(kbest, redi);
   const int coarse = best > kAutocorrThreshold ? kbest * kStride : -1;
-
-  const int radius = 3 * d.cp, n_off = 2 * radius + 1;
-  const int c = max(coarse, 0);
-  const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
-  for (int i = tid; i < n_off + sym - 1; i += nt) region[i] = pre(lo + i);
-  for (int i = tid; i < sym; i += nt) tmpl[i] = pre1[i];
-  __syncthreads();
-  float fm = -INFINITY;
-  int dbest = INT_MAX;
-  float mloc[2] = {-INFINITY, -INFINITY};
-  for (int o = tid, r = 0; o < n_off; o += nt, ++r) {
-    float corr = 0.0f, e = 0.0f;
-    for (int j = 0; j < sym; ++j) {
-      const float v = region[o + j];
-      corr = fmaf(v, tmpl[j], corr);
-      e = fmaf(v, v, e);
-    }
-    const float den = sqrtf(__fmul_rn(e, t_energy));
-    if (den > kXcorrMinDenom && lo + o <= hi) mloc[r] = __fdiv_rn(corr, den);
-    fm = fmaxf(fm, mloc[r]);
-  }
-  fm = block_max(fm, redf);
-  for (int o = tid, r = 0; o < n_off; o += nt, ++r)
-    if (mloc[r] == fm && isfinite(fm)) dbest = min(dbest, lo + o);
-  dbest = block_min(dbest, redi);
-  const int start = isfinite(fm) ? dbest : c;
+  const Refined r = refine_ce(pre, max(coarse, 0), pre1, t_energy, d, sm, ch_re_out + (size_t)b * na,
+                              ch_im_out + (size_t)b * na);
   if (tid == 0) {
-    start_out[b] = start;
+    start_out[b] = r.start;
     coarse_out[b] = coarse;
     cmetric_out[b] = best;
-    fine_out[b] = fm;
-    detected_out[b] = coarse >= 0 && fm >= kXcorrThreshold;
+    fine_out[b] = r.fine;
+    detected_out[b] = coarse >= 0 && r.fine >= kXcorrThreshold;
   }
-  channel_estimate(pre, start + 2 * sym + d.cp, d, body, ch_re_out + (size_t)b * na,
-                   ch_im_out + (size_t)b * na);
 }
 
 // 6. one tile of data symbols of stream b at start + 3*sym
@@ -834,6 +861,117 @@ receive_demod_kernel(const float* __restrict__ signals, const int* __restrict__ 
   demod_tile<Cfg, false>(pre, start[b] + 3 * (kFft + d.cp), 0, d, ch_re + (size_t)b * d.n_active,
                          ch_im + (size_t)b * d.n_active, k0, min(Cfg::kMT, max_syms - k0),
                          bits_out + (size_t)b * max_syms * d.nd * d.bps, smem);
+}
+
+// ---- kernel C: the cadence-predicted slots of a turbo round ----
+//
+// Replaces the JAX package's lax.scan of _predicted_signal_decode
+// (audio_modem_tpu/parallel/multi_receiver.py:314-330 over
+// parallel/batch.py:126-147), which XLA compiles into the turbo round's
+// device program; it has no Pallas twin. Per stream, slot after slot:
+// coarse = clamp(prev_start + cadence, 0, T - 1), the +-3*CP xcorr refine
+// there, detected = fine >= 0.1 and every earlier slot detected, the CE at
+// start + 2*sym, the demod of n_sym symbols at start + 3*sym; then the
+// repetition vote, the MSB-first byte pack and the round's 5-byte head
+// (detected, start big-endian) straight into the packed [B, K, 5 + n_bytes]
+// matrix, slot 0 included where kernel A decoded it.
+//
+// What bounds it on the H100: bytes, one read of the window (234 MB at the
+// turbo round's B = 64, T = 914,688: 70 us), on paper. In practice the
+// demod's float32 product (K x n_sym symbols a stream, see the demod tile)
+// and the serial slot chain set its time. The design:
+//   1-2. pre_stats and combine, kernel A's stages 1-2: the preprocess mean
+//        and scale, so the normalized sample is recomputed from the raw
+//        window wherever it is read (PreSrc; 0 past n_valid and past T, the
+//        zero extension of preprocess_extend) and no copy is made;
+//   3. chain (B): one CTA a stream walks its slots in order, since each
+//      slot's coarse index is the previous slot's refined start; the body
+//      is refine_ce, kernel A's stage 5. A missed slot still hands its
+//      refined start on; only the cumulative flag drops;
+//   4. demod (symbol tiles, slots, B): demod_tile on the normalized samples
+//      at each slot's start + 3*sym with that slot's channel;
+//   5. pack (slots, B): vote, byte pack and head of each slot.
+
+// 3. the slot chain of stream b
+__global__ void __launch_bounds__(kThreadsA)
+predicted_chain_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
+                       const float* __restrict__ stats, const float* __restrict__ pre1, float t_energy, Demod d,
+                       const int* __restrict__ start0, const unsigned char* __restrict__ ok0, int n_pred,
+                       int cadence, int* start_out, float* fine_out, unsigned char* ok_out, float* ch_re_out,
+                       float* ch_im_out) {
+  __shared__ RefineSmem sm;
+  const int b = blockIdx.x, na = d.n_active;
+  const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  int prev = start0[b];
+  bool ok = ok0[b] != 0;
+  for (int k = 0; k < n_pred; ++k) {
+    const size_t s = (size_t)b * n_pred + k;
+    const long long want = (long long)prev + cadence;
+    const int c = want < 0 ? 0 : want > T - 1 ? T - 1 : (int)want;
+    const Refined r = refine_ce(pre, c, pre1, t_energy, d, sm, ch_re_out + s * na, ch_im_out + s * na);
+    ok = ok && r.fine >= kXcorrThreshold;
+    if (threadIdx.x == 0) {
+      start_out[s] = r.start;
+      fine_out[s] = r.fine;
+      ok_out[s] = ok;
+    }
+    prev = r.start;
+  }
+}
+
+// 4. one tile of data symbols of slot blockIdx.y of stream blockIdx.z
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads)
+predicted_demod_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
+                       const float* __restrict__ stats, const int* __restrict__ start,
+                       const float* __restrict__ ch_re, const float* __restrict__ ch_im, Demod d, int n_pred,
+                       int n_sym, signed char* bits_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, k0 = blockIdx.x * Cfg::kMT;
+  const size_t s = (size_t)b * n_pred + blockIdx.y;
+  const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  demod_tile<Cfg, false>(pre, start[s] + 3 * (kFft + d.cp), 0, d, ch_re + s * d.n_active, ch_im + s * d.n_active,
+                         k0, min(Cfg::kMT, n_sym - k0), bits_out + s * n_sym * d.nd * d.bps, smem);
+}
+
+constexpr int kThreadsPack = 256;
+
+// 5. slot blockIdx.x of stream blockIdx.y into its packed row: head, then
+// byte j = the voted bits 8j .. 8j+7, MSB first (ops.bits.majority_vote:
+// group i is bits i*rep .. i*rep+rep-1, ties to 1; then bits_to_bytes).
+// The first k_slots - n_pred slots (0 or 1) come from kernel A's outputs
+// (bits0, start0, ok0), the others from the chain and the demod.
+__global__ void __launch_bounds__(kThreadsPack)
+predicted_pack_kernel(const signed char* __restrict__ bits, const int* __restrict__ start,
+                      const unsigned char* __restrict__ ok, const signed char* __restrict__ bits0,
+                      const int* __restrict__ start0, const unsigned char* __restrict__ ok0, int n_pred,
+                      int k_slots, int slot_bits, int rep, int n_bytes, unsigned char* __restrict__ packed) {
+  const int slot = blockIdx.x, b = blockIdx.y, first = k_slots - n_pred;
+  const signed char* src;
+  int st;
+  unsigned char flag;
+  if (slot < first) {
+    src = bits0 + (size_t)b * slot_bits;
+    st = start0[b];
+    flag = ok0[b];
+  } else {
+    const size_t s = (size_t)b * n_pred + (slot - first);
+    src = bits + s * slot_bits;
+    st = start[s];
+    flag = ok[s];
+  }
+  unsigned char* row = packed + ((size_t)b * k_slots + slot) * (5 + n_bytes);
+  if (threadIdx.x < 5) row[threadIdx.x] = threadIdx.x == 0 ? flag : (unsigned char)((st >> (32 - 8 * threadIdx.x)) & 0xFF);
+  for (int j = threadIdx.x; j < n_bytes; j += kThreadsPack) {
+    unsigned v = 0;
+    for (int q = 0; q < 8; ++q) {
+      const signed char* g = src + (size_t)(8 * j + q) * rep;
+      int sum = 0;
+      for (int r = 0; r < rep; ++r) sum += g[r];
+      v = (v << 1) | (unsigned)(2 * sum >= rep);
+    }
+    row[5 + j] = (unsigned char)v;
+  }
 }
 
 // ---- kernel B: frame-aligned chunk demod, a pipeline of two launches ----
@@ -972,18 +1110,18 @@ Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_
                cp,        n_active, nd,       npi,      ncol_pad,  bps,          qam_scale};
 }
 
-// Launches ``kernel`` (one of the three demod kernels, at tile Cfg) over
-// (tiles of n_sym symbols, B) with the tile's dynamic shared memory;
-// ``ce_rows`` rows of every tile are taken by a CE body (0 or 1).
+// Launches ``kernel`` (one of the four demod kernels, at tile Cfg) over
+// (tiles of n_sym symbols, rows.x, rows.y) with the tile's dynamic shared
+// memory; ``ce_rows`` rows of every tile are taken by a CE body (0 or 1).
 template <class Cfg, class... Params, class... Args>
-cudaError_t launch_tiles(void (*kernel)(Params...), const Demod& d, int ce_rows, int n_sym, int B,
+cudaError_t launch_tiles(void (*kernel)(Params...), const Demod& d, int ce_rows, int n_sym, dim3 rows,
                          cudaStream_t stream, Args... args) {
   const int per_tile = Cfg::kMT - ce_rows;
   const size_t smem = sizeof(float) * tile_smem_floats<Cfg>(d);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((n_sym + per_tile - 1) / per_tile, B), Cfg::kThreads, smem, stream>>>(args...);
+  kernel<<<dim3((n_sym + per_tile - 1) / per_tile, rows.x, rows.y), Cfg::kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -1051,6 +1189,66 @@ int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return (int)AMTPU_LAUNCH_TILES(receive_demod_kernel, d, 0, max_syms, B, stream, signals, n_valid, T,
                                  stats, start, ch_re, ch_im, d, max_syms, bits);
+}
+
+// Floats of kernel C's scratch for B rows of T samples and n_pred predicted
+// slots of slot_bits bits: lane subtrees and tile extremes as kernel A's,
+// mean and scale [B, 2], the unused first-drop slot (int) [B], then per
+// (stream, slot) the channel [B, n_pred, n_active] twice and the bits
+// (int8) [B, n_pred, slot_bits].
+long long amtpu_decode_predicted_scratch_floats(int B, int T, int n_pred, int n_active, int slot_bits) {
+  const TilingA g = tiling_a(T, 1);
+  return (long long)B * ((long long)g.n_rows_tiles * (kSumLanes + 2 * kLaneSplit) + 3) +
+         (long long)B * n_pred * (2LL * n_active + (slot_bits + 3) / 4);
+}
+
+// Kernel C on ``stream``: the n_pred = k_slots or k_slots - 1 predicted
+// slots of B rows of T raw samples (n_valid valid), the chain starting from
+// (start0, ok0), packed with the slot that kernel A decoded (bits0, int8
+// [B, slot_bits]; read when n_pred < k_slots) into ``packed`` [B, k_slots,
+// 5 + n_bytes], n_bytes = n_sym * nd * bps / repetition / 8. The predicted
+// slots' start, fine metric and cumulative flag go to start, fine and ok
+// [B, n_pred]. ``scratch`` holds amtpu_decode_predicted_scratch_floats
+// floats.
+int amtpu_decode_predicted(const float* signals, const int* n_valid, int B, int T, const int* start0,
+                           const unsigned char* ok0, const signed char* bits0, const float* pre1, float t_energy,
+                           const float* rx_active, const float* ce_known, const float* rx_demod,
+                           const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active, int nd,
+                           int npi, int ncol_pad, float qam_scale, int bps, int n_sym, int n_pred, int k_slots,
+                           int cadence, int repetition, float* scratch, int* start, float* fine,
+                           unsigned char* ok, unsigned char* packed, cudaStream_t stream) {
+  const int slot_bits = n_sym * nd * bps, n_bytes = slot_bits / repetition / 8;
+  const TilingA g = tiling_a(T, 1);
+  float* part = scratch;
+  float* tile_mm = part + (size_t)B * g.n_rows_tiles * kSumLanes;
+  float* stats = tile_mm + (size_t)B * g.n_rows_tiles * kLaneSplit * 2;
+  int* first_drop = reinterpret_cast<int*>(stats + (size_t)B * 2);
+  float* ch_re = reinterpret_cast<float*>(first_drop + B);
+  float* ch_im = ch_re + (size_t)B * n_pred * n_active;
+  signed char* bits = reinterpret_cast<signed char*>(ch_im + (size_t)B * n_pred * n_active);
+  const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active, nd, npi,
+                             ncol_pad, qam_scale, bps, bits);
+  if (T < 1 || B < 1 || n_sym < 1 || k_slots < 1 || repetition < 1 || n_bytes < 1 || d.fft == 0 || cp > 256 ||
+      fft + cp > kMaxSym || !(n_pred == k_slots || (n_pred == k_slots - 1 && bits0 != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (n_pred > 0) {
+    pre_stats_kernel<<<dim3(g.n_rows_tiles, B, kLaneSplit), kThreadsPre, 0, stream>>>(signals, n_valid, T, g.rows,
+                                                                                     part, tile_mm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    combine_kernel<<<B, kThreadsA, 0, stream>>>(part, tile_mm, n_valid, T, g.n_rows_tiles, stats, first_drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    predicted_chain_kernel<<<B, kThreadsA, 0, stream>>>(signals, n_valid, T, stats, pre1, t_energy, d, start0, ok0,
+                                                        n_pred, cadence, start, fine, ok, ch_re, ch_im);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = AMTPU_LAUNCH_TILES(predicted_demod_kernel, d, 0, n_sym, dim3(n_pred, B), stream, signals, n_valid, T,
+                                  stats, start, ch_re, ch_im, d, n_pred, n_sym, bits)) != cudaSuccess)
+      return (int)err;
+  }
+  predicted_pack_kernel<<<dim3(k_slots, B), kThreadsPack, 0, stream>>>(bits, start, ok, bits0, start0, ok0, n_pred,
+                                                                       k_slots, slot_bits, repetition, n_bytes,
+                                                                       packed);
+  return (int)cudaGetLastError();
 }
 
 // Floats of kernel B's scratch for B frames: the peak's bit pattern [B].

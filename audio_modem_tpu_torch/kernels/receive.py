@@ -4,14 +4,18 @@ audio_modem_tpu/kernels/receive.py).
 ``decode_fused`` (kernel A, csrc/receive.cu ``amtpu_decode_fused``) runs
 the whole receive: preprocess, strided Schmidl-Cox scan with first-peak
 commit, xcorr refine, CE, demod, as six launches gridded over (row tiles,
-scan tiles or symbol tiles, streams). ``decode_chunks_fused``
+scan tiles or symbol tiles, streams). ``decode_predicted`` (kernel C,
+``amtpu_decode_predicted``) runs a turbo round's cadence-predicted slots:
+A's preprocess stages, a chain of refine and CE a stream, one demod launch
+over (symbol tiles, slots, streams), then vote, byte pack and the round's
+packed rows. ``decode_chunks_fused``
 (kernel B, ``amtpu_decode_chunks_fused``) demodulates frame-aligned chunk
 frames as two launches (peak; CE and demod) gridded over (chunks of the
 frame or symbol tiles, frames). ``stream_demod`` (``stream_demod_kernel``)
 demodulates a data region whose channel and amplitude scale are already
 known, gridded over symbol tiles as well as streams;
 ``decode_chunks_fused_stream`` and ``decode_long_fused`` put a plain
-PyTorch prologue in front of it. All three end in one tiled,
+PyTorch prologue in front of it. All four end in one tiled,
 register-blocked demod (``demod_tile``) against ``Tables.rx_demod``. Each wrapper checks its inputs,
 allocates outputs and scratch with ``torch.empty`` and launches on the
 current stream of its tensors' device, with that device made current for
@@ -202,6 +206,122 @@ def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> to
     check(lib, code, "decode_chunks_fused")
     count_launch("decode_chunks_fused")
     return bits
+
+
+def decode_predicted_reference(
+    windows: torch.Tensor,
+    n_valid: torch.Tensor,
+    start0: torch.Tensor,
+    ok0: torch.Tensor,
+    mode: ModemMode,
+    n_sym_frame: int,
+    k_frames: int,
+    cadence: int,
+    bits0: torch.Tensor | None = None,
+) -> dict:
+    """Plain version of ``decode_predicted``: the turbo round's loop of
+    plain predicted slots (the JAX package's lax.scan of
+    _predicted_signal_decode), one ``batch.batch_decode_predicted`` a slot
+    over the ``batch.preprocess_extend``'ed windows."""
+    # parallel.batch and parallel.multi_receiver import this module
+    from audio_modem_tpu_torch.parallel import batch, multi_receiver
+
+    w = windows.shape[1]
+    slots = [] if bits0 is None else [multi_receiver._vote_pack(ok0, start0, bits0, mode)]
+    prev_start, prev_ok = start0.to(torch.int32), ok0
+    starts, fines, oks = [], [], []
+    n_pred = k_frames - len(slots)
+    if n_pred:
+        ext = batch.preprocess_extend(windows, n_valid, mode, n_sym_frame)
+        for _ in range(n_pred):
+            coarse = torch.clamp(prev_start + cadence, 0, w - 1).to(torch.int32)
+            out = batch.batch_decode_predicted(ext, coarse, n_valid, mode, n_sym_frame)
+            prev_ok = out["detected"] & prev_ok
+            prev_start = out["start"].to(torch.int32)
+            slots.append(multi_receiver._vote_pack(prev_ok, prev_start, out["bits"], mode))
+            starts.append(prev_start)
+            fines.append(out["fine_metric"])
+            oks.append(prev_ok)
+    n = windows.shape[0]
+
+    def cols(parts, dtype):
+        return torch.stack(parts, dim=1) if parts else torch.empty((n, 0), dtype=dtype, device=windows.device)
+
+    return {"packed": torch.stack(slots, dim=1), "start": cols(starts, torch.int32),
+            "fine_metric": cols(fines, torch.float32), "detected": cols(oks, torch.bool)}
+
+
+def decode_predicted(
+    windows: torch.Tensor,
+    n_valid: torch.Tensor,
+    start0: torch.Tensor,
+    ok0: torch.Tensor,
+    mode: ModemMode,
+    n_sym_frame: int,
+    k_frames: int,
+    cadence: int,
+    bits0: torch.Tensor | None = None,
+) -> dict:
+    """The cadence-predicted slots of a turbo round over [n, w] raw windows
+    with [n] valid lengths. The chain starts from ``start0`` int32 [n] and
+    ``ok0`` bool [n]: slot 0's start and detected flag when kernel A decoded
+    it (``bits0``, its bits int8 [n, n_sym_frame * bits_per_symbol]), else
+    the predicted slot 0's start minus the cadence and all True. Each slot
+    refines around the previous slot's start + cadence (clamped into the
+    window), counts as detected if its fine metric reaches 0.1 and every
+    earlier slot was detected, and is demodulated at its start.
+
+    Returns "packed" uint8 [n, k_frames, 5 + n_bytes] (each slot's
+    cumulative flag, start big-endian, voted and packed bytes; slot 0 from
+    ``bits0`` when given), and the predicted slots' "start" int32,
+    "fine_metric" float32 and cumulative "detected" bool, each [n, n_pred]
+    (n_pred = k_frames, or k_frames - 1 with ``bits0``). One call is one
+    launch of kernel C's pipeline."""
+    given = [windows, n_valid, start0, ok0] + ([] if bits0 is None else [bits0])
+    if not runs_on_kernel(*given):
+        return decode_predicted_reference(windows, n_valid, start0, ok0, mode, n_sym_frame, k_frames, cadence, bits0)
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    p = mode.profile
+    n, w = windows.shape
+    slot_bits = n_sym_frame * bits_per_symbol(mode)
+    n_pred = k_frames - (bits0 is not None)
+    _check(windows, "windows", torch.float32, (n, w))
+    _check(n_valid, "n_valid", torch.int32, (n,))
+    _check(start0, "start0", torch.int32, (n,))
+    _check(ok0, "ok0", torch.bool, (n,))
+    if bits0 is not None:
+        _check(bits0, "bits0", torch.int8, (n, slot_bits))
+    if p.symbol_len > 768 or p.cp_len > 256:
+        raise ValueError("kernel C's shared refine buffers hold cp <= 256, sym <= 768")
+    if n < 1 or n_sym_frame < 1 or n_pred < 0 or k_frames < 1:
+        raise ValueError(f"need a stream, a symbol and a slot, got n={n}, n_sym_frame={n_sym_frame}, "
+                         f"k_frames={k_frames}")
+    n_bytes = slot_bits // mode.repetition // 8
+    dev = windows.device
+    tabs = profile_tables(mode, dev)
+    lib = load_library()
+    scratch = torch.empty(
+        lib.amtpu_decode_predicted_scratch_floats(n, w, n_pred, p.num_active_subs, slot_bits),
+        dtype=torch.float32, device=dev)
+    out = {
+        "packed": torch.empty((n, k_frames, 5 + n_bytes), dtype=torch.uint8, device=dev),
+        "start": torch.empty((n, n_pred), dtype=torch.int32, device=dev),
+        "fine_metric": torch.empty((n, n_pred), dtype=torch.float32, device=dev),
+        "detected": torch.empty((n, n_pred), dtype=torch.bool, device=dev),
+    }
+    with torch.cuda.device(dev):
+        code = lib.amtpu_decode_predicted(
+            windows.data_ptr(), n_valid.data_ptr(), n, w, start0.data_ptr(), ok0.data_ptr(),
+            None if bits0 is None else bits0.data_ptr(),
+            tabs.pre1.data_ptr(), tabs.t_energy, *_table_args(mode, dev),
+            n_sym_frame, n_pred, k_frames, cadence, mode.repetition, scratch.data_ptr(),
+            *(out[k].data_ptr() for k in ("start", "fine_metric", "detected", "packed")),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(lib, code, "decode_predicted")
+    count_launch("decode_predicted")
+    return out
 
 
 def stream_demod_reference(

@@ -6,8 +6,11 @@ The batched full receive goes through kernel A
 VMEM gate, and kernel A grids its stages over tiles and streams. A single
 signal (B = 1) takes the decoder's route, ``decode_long_fused`` (see
 ``decoder._core_dispatch``). The frame-aligned demod goes through
-kernel B. The cadence-predicted decode (refine + CE + demod) is plain
-PyTorch, and so is the AWGN loopback step (``batch_loopback_step``).
+kernel B. ``batch_decode_predicted`` (refine + CE + demod of one
+cadence-predicted slot) is plain PyTorch: the turbo round's plain version
+(``kernels.receive.decode_predicted_reference``) runs it slot by slot,
+the card runs kernel C instead. The AWGN loopback step
+(``batch_loopback_step``) is plain PyTorch.
 
 ``batch_decode_signals``, ``batch_decode_chunk_frames`` and
 ``batch_loopback_step`` also take a batch sharded over a mesh
@@ -109,6 +112,7 @@ def batch_decode_predicted(
     data = sync.gather_windows(ext, start + 3 * sym, max_syms * sym).reshape(-1, max_syms, sym)
     return {
         "start": start,
+        "fine_metric": fine,
         "detected": fine >= sync.XCORR_THRESHOLD,
         "bits": phy.demodulate(data, ch_re, ch_im, mode),
     }

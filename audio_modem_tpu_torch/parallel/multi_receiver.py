@@ -14,12 +14,12 @@ device calls, every block:
 
 In steady state a chunked sender emits equal-length data frames on an exact
 sample cadence, so one round decodes K frames per stream: slot 0 runs the
-full receive, slots 1..K-1 refine + demodulate at the previous start +
-cadence, and the results come back as one packed uint8 matrix that the host
-classifies. With a cadence prediction for slot 0 as well, the round skips
-the scan altogether, and such rounds are dispatched speculatively: their
-results are fetched up to ``pipeline_depth`` rounds later and a stream
-rolls back on any deviation.
+full receive (kernel A), slots 1..K-1 refine + demodulate at the previous
+start + cadence (kernel C, which also packs), and the results come back as
+one packed uint8 matrix that the host classifies. With a cadence prediction
+for slot 0 as well, the round skips the scan altogether, and such rounds
+are dispatched speculatively: their results are fetched up to
+``pipeline_depth`` rounds later and a stream rolls back on any deviation.
 
 The samples of all streams live in a ``DeviceRing``; a round (the ``*_dev``
 functions) cuts each stream's window out of it, so per round the host sends
@@ -38,6 +38,7 @@ import torch
 from audio_modem_tpu_torch import decoder, framing, native, sync
 from audio_modem_tpu_torch.configs import FRAME_DATA, ModemMode, OfdmProfile
 from audio_modem_tpu_torch.kernels import resolve_device
+from audio_modem_tpu_torch.kernels.receive import decode_predicted
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.parallel import batch
 from audio_modem_tpu_torch.parallel.batch import batch_decode_chunk_frames_packed
@@ -283,27 +284,21 @@ def _multi_decode_core(
     Without ``pred0``, slot 0 runs the full receive and slots 1..K-1 refine
     around prev_start + cadence. With ``pred0`` (window-relative predicted
     start of slot 0) every slot is predicted and the scan is skipped. A slot
-    counts as detected only if every slot before it was."""
-    w = windows.shape[1]
-    slots = []
+    counts as detected only if every slot before it was.
+
+    Slot 0's full receive is kernel A; the predicted slots, their vote and
+    pack and the packed matrix are kernel C (``decode_predicted``), whose
+    plain version on the CPU is the loop of ``batch.batch_decode_predicted``
+    that the JAX package scans."""
+    n_valid = n_valid.to(torch.int32)
     if pred0 is None:
         out0 = batch.batch_decode_signals(windows, n_valid, mode, n_sym_frame, min_pos=min_pos)
-        slots.append(_vote_pack(out0["detected"], out0["start"], out0["bits"], mode))
-        prev_start, prev_ok = out0["start"].to(torch.int32), out0["detected"]
-        n_pred = k_frames - 1
+        start0, ok0, bits0 = out0["start"].to(torch.int32), out0["detected"], out0["bits"]
     else:
-        prev_start = (pred0 - cadence).to(torch.int32)
-        prev_ok = torch.ones(windows.shape[0], dtype=torch.bool, device=windows.device)
-        n_pred = k_frames
-    if n_pred:
-        ext = batch.preprocess_extend(windows, n_valid, mode, n_sym_frame)
-        for _ in range(n_pred):
-            coarse = torch.clamp(prev_start + cadence, 0, w - 1).to(torch.int32)
-            out = batch.batch_decode_predicted(ext, coarse, n_valid, mode, n_sym_frame)
-            prev_ok = out["detected"] & prev_ok
-            prev_start = out["start"].to(torch.int32)
-            slots.append(_vote_pack(prev_ok, prev_start, out["bits"], mode))
-    return torch.stack(slots, dim=1)
+        start0 = (pred0 - cadence).to(torch.int32)
+        ok0 = torch.ones(windows.shape[0], dtype=torch.bool, device=windows.device)
+        bits0 = None
+    return decode_predicted(windows, n_valid, start0, ok0, mode, n_sym_frame, k_frames, cadence, bits0)["packed"]
 
 
 def _batch_window_decode_multi(
@@ -450,9 +445,10 @@ class BatchReceiver:
     speculative round's wait is ``pipe_fetch``.
 
     ``pipeline_depth`` keeps the JAX package's decisions (its default of 8
-    hid a slow host-device round trip). On an H100 no depth has measured
-    faster than synchronous fetches (``pipeline_depth=0``): the rounds are
-    bound by their host launches, and the fetch waits little.
+    hid a slow host-device round trip). On an H100, with a round's
+    predicted slots in one kernel, depth 8 measures faster than
+    synchronous fetches (``pipeline_depth=0``): the card works on a round
+    while the host consumes the one before (PERF.md).
 
     ``mesh`` (a ``mesh.StreamMesh``) shards the stream axis: the device
     ring holds each shard's streams on its device and every turbo round

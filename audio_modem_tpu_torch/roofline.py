@@ -58,6 +58,21 @@ def work_decode_fused(mode: ModemMode, b: int, t: int, max_syms: int) -> tuple[f
     return n_bytes, flops
 
 
+def work_decode_predicted(mode: ModemMode, b: int, w: int, n_sym_frame: int, k: int) -> tuple[float, float]:
+    """(bytes, flops) of kernel C over k predicted slots: window, tables and
+    outputs (the packed rows, and each slot's start, fine metric and flag)
+    once; mean, max and normalize (4 a sample), the +-3*CP refine (2 FMAs
+    per tap), one FFT for the CE and one per symbol of every slot."""
+    p = mode.profile
+    n_off = 6 * p.cp_len + 1
+    tables = 4 * p.fft_size * 2 * (p.num_active_subs + p.num_data_subs + len(p.pilots)) + 4 * p.symbol_len
+    n_bytes = n_sym_frame * bits_per_symbol(mode) // mode.repetition // 8
+    out = b * k * (5 + n_bytes + 9)
+    n_bytes_moved = 4.0 * b * w + 9 * b + tables + out
+    flops = 4.0 * b * w + 4.0 * b * k * n_off * p.symbol_len + _fft_flops(mode, b * k * (1 + n_sym_frame))
+    return n_bytes_moved, flops
+
+
 def work_chunks(mode: ModemMode, b: int, t: int, n_sym: int) -> tuple[float, float]:
     """(bytes, flops) of kernel B: frames and bits once; peak, scale, one FFT
     for the CE and one per symbol."""

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's paths at full size: the turbo receive round (64 QPSK
-streams, 2048-byte chunks, 32 frames per round; BASELINE config 5), the
+streams, 2048-byte chunks, 32 frames per round, kernels A and C; BASELINE
+config 5), the
 single-signal decode (api.encode -> api.decode of a 32,736-byte file as one
 BPSK-REPEAT legacy frame of 7,906,500 samples under 12 dB AWGN; BASELINE
 config 2), the chunked-file receive (api.encode_chunked ->
@@ -29,10 +30,17 @@ Phases, one line each:
   5. kernel B (decode_chunks_fused: peak, then CE and demod gridded over
      symbol tiles) against its plain version on 64 frame-aligned frames
   6. the main path with launch counts from zero: one turbo round
-     (_batch_window_decode_multi) and the frame-aligned packed demod of its
-     frames; every slot must be detected, CRC-valid and in sequence
+     (_batch_window_decode_multi: kernel A for slot 0, kernel C once for the
+     31 predicted slots) and the frame-aligned packed demod of its frames;
+     every slot must be detected, CRC-valid and in sequence
   7. times from CUDA events (median of 10 after warm-up, plain and kernel
-     in turns); kernels A and B beside their bounds and roofline shares
+     in turns); kernels A and B beside their bounds and roofline shares.
+     Then kernel C (decode_predicted) against its plain version on the same
+     round in both branches (slot 0 from kernel A; every slot predicted):
+     start, flags and heads equal on every (stream, slot), fine metric
+     within 1e-5, payload bytes equal on every slot, all CRC-valid and in
+     sequence; its time and its plain version's (median of 5, in turns)
+     beside its bound
   8. the streaming demod (decode_chunks_fused_stream) against its plain
      version and kernel B on 64 BPSK-NARROW 512-byte chunk frames (598
      symbols of 768 samples) and 64 QPSK 2048-byte chunk frames (41 of 576)
@@ -65,8 +73,8 @@ Phases, one line each:
      _batch_window_decode_multi on the same windows, round 2
      (_batch_window_decode_pred_dev) is predicted from round 1's last start
      plus the cadence; every slot of both detected, CRC-valid and in
-     sequence; decode_fused launches in round 1 only; both rounds' ms, the
-     ring's write and gather ms
+     sequence; decode_fused launches in round 1 only, decode_predicted once
+     a round; both rounds' ms, the ring's write and gather ms
  16. the retry ladder's timing tracker: api.decode(track_timing=True) of the
      32,736-byte QPSK frame, exact bytes, wall ms
  17. BatchReceiver, host-fed: a seeded file of 4 chunks per stream into 64
@@ -80,17 +88,21 @@ Phases, one line each:
      (3.68 M samples, 235 M stream-samples), blocks cut on the card as
      broadcast slices of one signal, ring [64, 3,597,568], K = 8,
      pipeline_depth 8: all 64 complete and exact, decode_fused launched,
-     predicted rounds carry at least the scanned rounds' samples,
+     decode_predicted once a K-round (multi_dispatch + pred_dispatch
+     calls, at both depths), predicted rounds carry at least the scanned
+     rounds' samples,
      speculative fetches happened; wall, Msamples/s, real-time streams,
      the receiver's stage split and launches; then the same transfer at
      pipeline_depth 0, exact, its wall beside depth 8's. Then rows that
      differ: 8 seeded files of 64 chunks, stream i carrying file i % 8
      behind 3,001 * i samples of noise; a warm and a timed pass, each
      stream's own file exact, wall and stage split, and the [64, 232,320]
-     window cut out of the ring for lockstep and for staggered rows. Kernel
-     A against its plain version on the first input of each shape the warm
-     passes gave it (the startup windows [64, 65,536] at max_syms 110, slot
-     0 of the scanned K-rounds at [64, 232,320], the shorter tail rounds)
+     window cut out of the ring for lockstep and for staggered rows. Kernels
+     A and C against their plain versions on the first input of each shape
+     the warm passes gave them (the startup windows [64, 65,536] at
+     max_syms 110, slot 0 of the scanned K-rounds at [64, 232,320], the
+     shorter tail rounds; C in both branches by compare_predicted's rule
+     for a live runtime's windows)
  19. the application layer: the port's CLI (cli.main in this process, on
      the card by default) with launch counts from zero before each
      subcommand: encode -> decode of a seeded 32,736-byte file (one QPSK
@@ -117,9 +129,10 @@ Phases, one line each:
      card) and, with two or more cards, on make_mesh(2) (with one card it
      says that the two-card mesh was not run); a warm and a timed pass each,
      64 exact files, results, counters, final state and stage counts equal
-     to phase 18's un-sharded receiver, kernel A launched once a shard for
-     each of its launches there; wall and stage split beside phase 18's;
-     kernel A against its plain version on every shard's inputs
+     to phase 18's un-sharded receiver, kernels A and C launched once a
+     shard for each of their launches there; wall and stage split beside
+     phase 18's; kernels A and C against their plain versions on every
+     shard's inputs
  22. entry points and the cluster: entry() on the card (kernel B once,
      bit for bit against its plain version), dryrun_multichip on
      [cuda:0] x 2 and on every card, then parallel.multihost.run_dryrun
@@ -135,7 +148,7 @@ Phases, one line each:
      sqlite, exact), the lossy soak (tools/soak_lossy.py: 2 sessions x 32
      streams, plain and FEC, cut to 8 chunks a stream; every stream
      complete and exact after ARQ), the demo (examples/demo.py at 6,000 B,
-     payload match) in a temporary directory; then kernels A, B and the
+     payload match) in a temporary directory; then kernels A, B, C and the
      streaming demod against their plain versions on the first input of
      each shape these runs gave them (phase 20's checks; on the lossy
      soak's frames, noisy by design, B may flip at most 2 points a frame,
@@ -173,9 +186,17 @@ Phases, one line each:
      its plain version on every input of those decodes (phase 20's rule),
      the phase's wall, and the host wall of api.decode for config 1 and
      config 4 at 28 dB (median of 10 after a warm call)
+ 26. kernel C against its plain version on edge inputs at full width, in
+     both branches: phase 3's 64 x 32 QPSK windows with slot 5's frame
+     zeroed (exact DC removal: flags drop from slot 5 on, slot 6 finds its
+     frame from slot 5's start), predictions clamped at w - 1 and at 0 (a
+     silent row), BPSK-REPEAT at its 512-byte chunks (64 x 8, the vote;
+     every slot CRC-valid, in sequence), K = 1; start, flags and heads
+     equal on every slot, fine within 1e-5, payload equal on detected slots
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero,
+the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero
+(kernel C's time and bound: every slot predicted, phase 7),
 the bound: bytes over the card's memory rate or float32 operations over
 its float32 peak, whichever is larger, from this run's shapes, each DFT
 counted at the cost of a real-input FFT; audio_modem_tpu_torch/roofline.py
@@ -204,6 +225,7 @@ SEED = 0
 # decision boundary in the plain version, over the frame's rms point magnitude.
 B_FLIPS_A_FRAME = 2
 B_BOUNDARY = 1e-4
+PATH_ERR_C = [0.0]  # kernel C's largest fine-metric error on the inputs that path_inputs kept
 
 
 def fail(msg: str) -> None:
@@ -416,12 +438,12 @@ def resume_receive(data: bytes, frames: list, mode_name: str, dev) -> str:
             f"(sqlite store {size} bytes)")
 
 
-def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536) -> tuple[int, str]:
+def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536) -> tuple[Counter, str]:
     """Two rounds out of a DeviceRing. ``frames`` [n * K, cadence] are K data
     frames per stream; stream i is delayed by 16 * (i % 8) samples and sends
     its K frames twice. After a quiet lead-in that makes the ring's write
-    position wrap, everything is written in blocks. Returns (decode_fused
-    launches of the two rounds, a report line)."""
+    position wrap, everything is written in blocks. Kernel C launches once a
+    round. Returns (the two rounds' launches, a report line)."""
     import numpy as np
     import torch
 
@@ -463,7 +485,8 @@ def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536)
     params1 = np.stack([np.full(n, ring.rel(g1), np.int32), np.zeros(n, np.int32), n_valid])
     reset_launch_counts()
     packed1 = mr._batch_window_decode_multi_dev(ring, params1, mode, n_sym, k, cadence, w)
-    c1 = launch_counts()["decode_fused"]
+    l1 = launch_counts()
+    c1 = l1["decode_fused"]
     starts1 = check("device ring round 1", packed1)
     dev1 = torch.from_numpy(params1).to(dev)
     direct = mr._batch_window_decode_multi(windows_at(g1), dev1[1], dev1[2], mode, n_sym, k, cadence)
@@ -475,24 +498,29 @@ def ring_rounds(dev, mode, frames, n_sym: int, cadence: int, block: int = 65536)
     params2 = np.stack([np.full(n, ring.rel(g2), np.int32), pred0, n_valid])
     reset_launch_counts()
     packed2 = mr._batch_window_decode_pred_dev(ring, params2, mode, n_sym, k, cadence, w)
-    c2 = launch_counts()["decode_fused"]
+    l2 = launch_counts()
+    c2 = l2["decode_fused"]
     starts2 = check("device ring round 2", packed2)
     if not np.array_equal(starts2, starts1):
         fail("device ring round 2: the repeated frames were found at other window positions than round 1's")
     wraps = (ring.total_written + ring.rel(g2)) % ring.capacity + w > ring.capacity
     if c1 < 1 or c2 != 0:
         fail(f"device ring: decode_fused launched {c1} times in round 1 and {c2} in round 2")
+    if l1["decode_predicted"] != 1 or l2["decode_predicted"] != 1:
+        fail(f"device ring: decode_predicted launched {l1['decode_predicted']} and {l2['decode_predicted']} times, "
+             "not once a round")
     t1 = time_ms(lambda: mr._batch_window_decode_multi_dev(ring, params1, mode, n_sym, k, cadence, w), reps=5, warm=1)
     t2 = time_ms(lambda: mr._batch_window_decode_pred_dev(ring, params2, mode, n_sym, k, cadence, w), reps=5, warm=1)
     t_gather = time_ms(lambda: mr._ring_gather(ring, range(n), params2[0].tolist(), w))
     blk = stream[:, :block].contiguous()
     t_write = time_ms(lambda: ring.write(blk))  # last: the writes move the ring on
     msps = k * cadence * n / 1e3
-    return c1, (f"ring [{n}, {ring.capacity}] written in blocks of {block} ({length} samples a stream, write "
+    return Counter(l1) + Counter(l2), (f"ring [{n}, {ring.capacity}] written in blocks of {block} ({length} samples a stream, write "
                 f"position wrapped; round 2's windows {'cross' if wraps else 'do not cross'} the buffer's end); "
                 f"round 1 (_batch_window_decode_multi_dev) equals _batch_window_decode_multi on the same windows, "
                 f"round 2 (_batch_window_decode_pred_dev) predicted from round 1's last start + cadence; "
-                f"{n} x {k} slots of each detected, CRC-valid, in sequence; decode_fused launches {c1} and {c2}; "
+                f"{n} x {k} slots of each detected, CRC-valid, in sequence; decode_fused launches {c1} and {c2}, "
+                f"decode_predicted {l1['decode_predicted']} and {l2['decode_predicted']}; "
                 f"round 1 {t1:.3f} ms = {msps / t1:.1f} Msamples/s, round 2 {t2:.3f} ms = {msps / t2:.1f} "
                 f"Msamples/s; window gather {t_gather:.3f} ms, block write {t_write:.4f} ms")
 
@@ -537,22 +565,27 @@ def check_batch(label: str, rx, want: list) -> None:
 def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     """While the block runs, keep a copy of the first input of each shape
     that the batched path hands kernels A and B (``batch.decode_fused`` and
-    ``batch.decode_chunks_fused``) and that the decoder hands the streaming
+    ``batch.decode_chunks_fused``), that the turbo round hands kernel C
+    (``multi_receiver.decode_predicted``; its shape carries K and the
+    branch) and that the decoder hands the streaming
     demod (``decoder.stream_demod``, and ``receive.stream_demod`` under
     ``decode_long_fused``), each looked up at call time, in ``store``, keyed
     by (kernel, tag, shape, symbols). The kernels run as they would;
     ``check_path_inputs`` holds them to their plain versions afterwards.
     With ``shards`` > 1 (a receiver sharded over a mesh, whose rounds call
     kernel A once a shard, in shard order) kernel A's inputs are kept per
-    shard: the tag of the k-th call of a shape is "``tag`` shard k % shards".
+    shard: the tag of the k-th call of a shape is "``tag`` shard k % shards",
+    and so are kernel C's.
     With ``by_mode`` the mode's name follows the tag, so modes whose inputs
     share a shape are each kept."""
     from audio_modem_tpu_torch import decoder
     from audio_modem_tpu_torch.kernels import receive
-    from audio_modem_tpu_torch.parallel import batch
+    from audio_modem_tpu_torch.parallel import batch, multi_receiver
 
     real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
+    real_c = multi_receiver.decode_predicted
     calls_a: Counter = Counter()
+    calls_c: Counter = Counter()
 
     def tag_of(mode) -> str:
         return f"{tag} {mode.name}" if by_mode else tag
@@ -565,6 +598,16 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
         if key not in store:
             store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
         return real_a(signals, n_valid, min_pos, mode, max_syms)
+
+    def record_c(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
+        shape = (*windows.shape, k, "predicted" if bits0 is None else "scanned")
+        shard = calls_c[shape] % shards
+        calls_c[shape] += 1
+        key = ("decode_predicted", f"{tag_of(mode)} shard {shard}" if shards > 1 else tag_of(mode), shape, n_sym)
+        if key not in store:
+            store[key] = (windows.clone(), n_valid.clone(), start0.clone(), ok0.clone(), mode, k, cadence,
+                          None if bits0 is None else bits0.clone())
+        return real_c(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0)
 
     def record_b(frames, mode, n_sym):
         key = ("decode_chunks_fused", tag_of(mode), tuple(frames.shape), n_sym)
@@ -580,11 +623,13 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
 
     batch.decode_fused, batch.decode_chunks_fused = record_a, record_b
     receive.stream_demod = decoder.stream_demod = record_s
+    multi_receiver.decode_predicted = record_c
     try:
         yield store
     finally:
         batch.decode_fused, batch.decode_chunks_fused = real_a, real_b
         receive.stream_demod = decoder.stream_demod = real_s
+        multi_receiver.decode_predicted = real_c
 
 
 def b_points(frames, mode, n_sym: int) -> tuple:
@@ -652,9 +697,10 @@ def plain_receive(sig, n_valid, min_pos, mode, max_syms: int, rows: int = 512) -
 
 def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = (),
                       stream_errs: "list | None" = None) -> tuple[float, str]:
-    """Kernels A and B and the streaming demod against their plain versions on
-    every input that ``path_inputs`` kept: A by
-    ``compare_receive(by_frame=True)``, B by equal bits over the frame's
+    """Kernels A, B and C and the streaming demod against their plain versions
+    on every input that ``path_inputs`` kept: A by
+    ``compare_receive(by_frame=True)``, C by ``compare_predicted(strict=False)``,
+    B by equal bits over the frame's
     symbols, the streaming demod by equal bits over its whole output. Under
     a tag in ``noisy`` (frames through a noisy channel, whose points may sit
     on a decision boundary, where the kernel's and cuBLAS's summation orders
@@ -666,7 +712,8 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
     carry signal (``signal_symbols``); flips in its junk symbols are
     reported. The streaming demod's largest bit difference on the symbols
     that carry signal goes to ``stream_errs``, one entry an input, where a
-    list is given. Returns (largest fine or channel error, a report)."""
+    list is given; kernel C's largest fine error to ``PATH_ERR_C``. Returns
+    (kernel A's largest fine or channel error, a report)."""
     import torch
 
     from audio_modem_tpu_torch.kernels import receive
@@ -696,6 +743,13 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
             parts.append(f"A at {where}: {int(out['detected'].sum())} of {shape[0]} detected, every detected "
                          f"row parses as the plain version's, fine err {e_fine:.3e}, ch err {e_ch:.3e}, flipped "
                          f"bits {flips} of {n_in} ({by_kind}){exact}")
+        elif name == "decode_predicted":
+            windows, n_valid, start0, ok0, mode, k, cadence, bits0 = args
+            out = receive.decode_predicted(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0)
+            ref = receive.decode_predicted_reference(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0)
+            e_fine, rep = compare_predicted(f"{label}: kernel C at {where}", out, ref, strict=False)
+            PATH_ERR_C[0] = max(PATH_ERR_C[0], e_fine)
+            parts.append(f"C at {where}: {rep}")
         elif name == "stream_demod":
             data, ch_re, ch_im, scale, mode = args
             out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
@@ -861,8 +915,9 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
     with launch counts from zero. Then rows that differ
     (``config5_staggered_blocks``): a warm pass and a timed one, every
     stream's own file exact, and the ring's window cut for staggered rows
-    timed beside the lockstep cut. Kernel A is held to its plain version on
-    the first input of each shape that the two warm passes gave it. Returns
+    timed beside the lockstep cut. Kernel C must launch once a K-round.
+    Kernels A and C are held to their plain versions on the first input of
+    each shape that the two warm passes gave them. Returns
     (launches of the timed passes, kernel A's largest fine or channel error,
     a report line, and depth 8's reference for phase 21: its wall, stage
     report, launches and ``receiver_state``)."""
@@ -895,6 +950,10 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
         counts = launch_counts()
         check_batch(f"device ingest, pipeline_depth {depth}", rx, want)
         rep = rx.timer.report()
+        rounds = sum(rep.get(f"{st}_dispatch", {}).get("calls", 0) for st in ("multi", "pred"))
+        if counts["decode_predicted"] != rounds or rounds < 1:
+            fail(f"device ingest, pipeline_depth {depth}: decode_predicted launched {counts['decode_predicted']} "
+                 f"times in {rounds} K-rounds")
         if depth:
             if counts["decode_fused"] < 1:
                 fail(f"device ingest: decode_fused never launched: {counts}")
@@ -925,7 +984,8 @@ def batch_receive_device(dev, n: int = N_STREAMS, n_chunks: int = 128, block: in
         fail(f"device ingest, staggered rows: decode_fused never launched: {counts_s}")
     total.update(counts_s)
     rep_s = rx.timer.report()
-    if not {("decode_fused", "broadcast"), ("decode_fused", "staggered")} <= {k_[:2] for k_ in inputs}:
+    if not {("decode_fused", "broadcast"), ("decode_fused", "staggered"), ("decode_predicted", "broadcast"),
+            ("decode_predicted", "staggered")} <= {k_[:2] for k_ in inputs}:
         fail(f"device ingest: kernel inputs recorded only at {sorted(k_[:3] for k_ in inputs)}")
     # the widest window kernel A was given: slot 0 of a scanned K-round
     w = max(k_[2][1] for k_ in inputs if k_[0] == "decode_fused")
@@ -954,9 +1014,10 @@ def mesh_receive(dev, ref: dict, n: int = N_STREAMS, n_chunks: int = 128, block:
     on ``dev``, every card, and two cards where there are two. A warm pass,
     then a timed one with launch counts from zero, each 64 files exact; the
     timed pass's results, counters, final state and stage counts must equal
-    phase 18's un-sharded receiver (``ref``), and kernel A must launch once
-    a shard for each of its launches there. Kernel A is held to its plain
-    version on the first input of each shape on every shard. Returns
+    phase 18's un-sharded receiver (``ref``), and kernels A and C must
+    launch once a shard for each of their launches there. Kernels A and C
+    are held to their plain versions on the first input of each shape on
+    every shard. Returns
     (launches, kernel A's largest fine or channel error, a report line)."""
     import torch
 
@@ -992,9 +1053,10 @@ def mesh_receive(dev, ref: dict, n: int = N_STREAMS, n_chunks: int = 128, block:
             fail(f"mesh {label}: ring shards on {[str(b.device) for b in rx.dring.shards]}")
         if receiver_state(rx) != ref["state"]:
             fail(f"mesh {label}: results, counters or state differ from phase 18's un-sharded receiver")
-        if counts["decode_fused"] != mesh.size * ref["counts"]["decode_fused"]:
-            fail(f"mesh {label}: decode_fused launched {counts['decode_fused']} times, not {mesh.size} x "
-                 f"{ref['counts']['decode_fused']}")
+        for kernel in ("decode_fused", "decode_predicted"):
+            if counts[kernel] != mesh.size * ref["counts"][kernel]:
+                fail(f"mesh {label}: {kernel} launched {counts[kernel]} times, not {mesh.size} x "
+                     f"{ref['counts'][kernel]}")
         total.update(counts)
         msps = n * t / wall / 1e6
         parts.append(f"mesh {label} ({', '.join(map(str, mesh.devices))}): {n} exact files, state equal to phase "
@@ -1003,13 +1065,15 @@ def mesh_receive(dev, ref: dict, n: int = N_STREAMS, n_chunks: int = 128, block:
         del rx
     if count < 2:
         parts.append("the two-card mesh was not run: this machine has one card")
-    tags = {k[1] for k in inputs if k[0] == "decode_fused"}
-    for label, mesh in meshes:
-        if mesh.size > 1 and not {f"{label} shard {k}" for k in range(mesh.size)} <= tags:
-            fail(f"mesh {label}: kernel A's inputs recorded only for {sorted(tags)}")
+    for kernel in ("decode_fused", "decode_predicted"):
+        tags = {k[1] for k in inputs if k[0] == kernel}
+        for label, mesh in meshes:
+            if mesh.size > 1 and not {f"{label} shard {k}" for k in range(mesh.size)} <= tags:
+                fail(f"mesh {label}: {kernel}'s inputs recorded only for {sorted(tags)}")
     err, checked = check_path_inputs("mesh", inputs)
     return total, err, (f"{n} streams x {t} samples ({n_chunks} chunks, K = 8, pipeline_depth 8); "
-                        + "; ".join(parts) + f"; kernel A against its plain version on every shard: {checked}")
+                        + "; ".join(parts) + f"; kernels A and C against their plain versions on every shard: "
+                        f"{checked}")
 
 
 def entry_and_cluster(dev, store: dict) -> tuple[Counter, str]:
@@ -1129,8 +1193,8 @@ def soak_and_demo(dev, store: dict) -> tuple[Counter, str]:
     return total, "; ".join([soak_line, lossy_line, demo_line])
 
 
-BENCH_RATES = ("batch4096_full_pipeline_msps", "frame_demod_only_msps", "long_frame_kernel_msps",
-               "long_std_kernel_msps", "batch_receiver_device_msps")
+BENCH_RATES = ("batch4096_full_pipeline_msps", "frame_demod_only_msps", "predicted_kernel_msps",
+               "long_frame_kernel_msps", "long_std_kernel_msps", "batch_receiver_device_msps")
 
 
 def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
@@ -1171,7 +1235,7 @@ def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
     missing = [k for k in BENCH_RATES + ("per_mode_msps", "roofline") if k not in d]
     if missing or len(d["per_mode_msps"]) != 6:
         fail(f"bench: details lack {missing} or a mode: {sorted(d)}")
-    if len(d["roofline"]["kernels"]) != 3 or any(r["bound_by"] is None for r in d["roofline"]["kernels"].values()):
+    if len(d["roofline"]["kernels"]) != 4 or any(r["bound_by"] is None for r in d["roofline"]["kernels"].values()):
         fail(f"bench: roofline {d['roofline']}")
     for key in [k for k in store if k[0] == "decode_fused" and k[2][0] > N_STREAMS]:
         store[(key[0], f"{key[1]} clean", *key[2:])] = store.pop(key)
@@ -1677,6 +1741,166 @@ def compare_receive(label: str, out: dict, ref: dict, n_valid, mode, by_frame: b
     return err_fine, err_ch, flips, n_in, f"{report}; rows with flips: {', '.join(flipped[:12]) or 'none'}"
 
 
+def zeroed_exact(x, nv: int, lo: int, hi: int):
+    """``x`` [n, T] on steps of 2**-8, samples [lo, hi) set to 0, and the first
+    ``nv`` samples of every row summing to exactly 0: the rest of a row's
+    sum goes out as steps of -+2**-8 on samples spread evenly outside
+    [lo, hi). Every sum the DC removal takes is then exact in any order, the
+    mean is 0, and the zeroed stretch stays 0 after it (a constant there
+    would hold rounding residue that decides the refine and the bits)."""
+    import numpy as np
+
+    q = np.round(x.astype(np.float64) * 256)
+    q[:, lo:hi] = 0.0
+    pos = np.concatenate([np.arange(lo), np.arange(hi, nv)])
+    for row in q:
+        r = int(row[:nv].sum())
+        while r:
+            at = pos[:: max(1, len(pos) // abs(r))][: abs(r)]
+            row[at] -= np.sign(r)
+            r -= int(np.sign(r)) * len(at)
+    return (q / 256).astype(np.float32)
+
+
+def predicted_edges(dev, mode, windows, n_sym: int, cadence: int) -> tuple[float, str]:
+    """Phase 26: kernel C against its plain version (``compare_predicted``,
+    strict) on edge inputs at full width, both branches of the round where
+    they differ (slot 0 from kernel A, or every slot predicted from slot 0's
+    start), kernel C launched once a call:
+      - phase 3's 64 x 32 QPSK windows with slot 5's frame zeroed on every
+        stream, from twice the refine radius before its preamble to slot 6
+        (``zeroed_exact``: exact DC removal, the stretch stays 0). Slots 0-4
+        detected, 5 onward not; slot
+        6 finds its frame from slot 5's start;
+      - predictions clamped into the window: stream i at slot 0's start + 3
+        (i % 4 = 0), at w - 1, far past the window, and far before it on a
+        silent row (clamped at 0, every later slot a cadence on);
+      - BPSK-REPEAT (the vote) at its 512-byte chunks, 64 streams x K = 8:
+        every slot detected, CRC-valid and in sequence;
+      - K = 1 on phase 3's windows.
+    Returns (the largest fine error, a report line)."""
+    import numpy as np
+    import torch
+
+    from audio_modem_tpu_torch import MODES, bench
+    from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+
+    p = mode.profile
+    n, w = windows.shape
+    k = K
+    nv_k = k * cadence
+    n_valid = torch.full((n,), nv_k, dtype=torch.int32, device=dev)
+    err, parts = 0.0, []
+
+    def run(label: str, x, nv, m, ns: int, kk: int, cad: int, pred0=None) -> tuple:
+        nonlocal err
+        if pred0 is None:
+            out0 = receive.decode_fused(x, nv, torch.zeros_like(nv), m, ns)
+            s0, o0, b0 = out0["start"], out0["detected"], out0["bits"]
+        else:
+            s0, o0, b0 = (pred0 - cad).to(torch.int32), torch.ones(x.shape[0], dtype=torch.bool, device=dev), None
+        reset_launch_counts()
+        out = receive.decode_predicted(x, nv, s0, o0, m, ns, kk, cad, b0)
+        if launch_counts()["decode_predicted"] != 1:
+            fail(f"phase 26 {label}: decode_predicted launched {launch_counts()}")
+        ref = receive.decode_predicted_reference(x, nv, s0, o0, m, ns, kk, cad, b0)
+        e, rep = compare_predicted(f"phase 26 {label}", out, ref)
+        err = max(err, e)
+        parts.append(f"{label} {list(x.shape)} K = {kk}: {rep}")
+        return out, out["packed"][..., 0].bool().cpu().numpy(), kk - out["start"].shape[1]
+
+    start0 = receive.decode_fused(windows, n_valid, torch.zeros_like(n_valid), mode, n_sym)["start"]
+    # slot 5 zeroed, exact DC removal
+    zero = 5
+    pre = p.silence_pre_chunk(False)
+    zeroed = torch.from_numpy(zeroed_exact(windows.cpu().numpy(), nv_k, zero * cadence + pre - 6 * p.cp_len,
+                                           (zero + 1) * cadence)).to(dev)
+    for branch, pred0 in (("zeroed slot 5, slot 0 from kernel A", None), ("zeroed slot 5, predicted", start0 + 3)):
+        out, det, first = run(branch, zeroed, n_valid, mode, n_sym, k, cadence, pred0)
+        st6 = out["start"][:, zero + 1 - first]
+        if not (det[:, :zero].all() and not det[:, zero:].any() and torch.equal(st6, start0 + (zero + 1) * cadence)
+                and bool((out["fine_metric"][:, zero + 1 - first] > 0.9).all())):
+            fail(f"phase 26 {branch}: flags {det[0].astype(int).tolist()}, slot 6 at {st6[:4].tolist()}")
+    del zeroed
+    # clamped predictions, a silent row
+    rows = torch.arange(n, device=dev) % 4
+    clamped = torch.where((rows == 3)[:, None], 0.0, windows)
+    pred0 = torch.where(rows == 0, start0 + 3, torch.where(rows == 1, w - 1, torch.where(rows == 2, w + 10**6, -(10**6))))
+    out, det, _ = run("clamped predictions", clamped, n_valid, mode, n_sym, k, cadence, pred0.to(torch.int32))
+    silent = out["start"][rows == 3]
+    ramp = torch.arange(k, device=dev, dtype=torch.int32) * cadence
+    if not (det[rows.cpu().numpy() == 0].all() and not det[rows.cpu().numpy() != 0].any()
+            and bool((silent == ramp).all()) and bool((out["start"][(rows == 1) | (rows == 2)] == w - 1).all())):
+        fail(f"phase 26 clamped predictions: flags {det[:4].astype(int).tolist()}, silent row starts {silent[0, :4].tolist()}")
+    del clamped
+    # BPSK-REPEAT at full width
+    rep_mode = MODES["BPSK-REPEAT"]
+    u8 = bench.turbo_payloads(np.random.default_rng(SEED + 26), n, 8, rep_mode.chunk_size)
+    rep_w, rep_cad, rep_sym = bench.turbo_windows(u8, rep_mode, n, 8, dev)
+    rep_nv = torch.full((n,), 8 * rep_cad, dtype=torch.int32, device=dev)
+    rep_start = None
+    for branch in ("slot 0 from kernel A", "predicted"):
+        out, _, _ = run(f"BPSK-REPEAT, {branch}", rep_w, rep_nv, rep_mode, rep_sym, 8, rep_cad, rep_start)
+        cls = mr._classify_round(out["packed"].cpu().numpy(), rep_mode.chunk_size)
+        if cls is None or not (cls[0].all() and cls[2].all() and (cls[3] == np.arange(8)[None, :]).all()):
+            fail(f"phase 26 BPSK-REPEAT, {branch}: not every slot detected, CRC-valid and in sequence")
+        rep_start = torch.from_numpy(cls[1][:, 0].astype(np.int32)).to(dev) + 3
+    del rep_w
+    # K = 1
+    for branch, pred0 in (("K = 1, slot 0 from kernel A", None), ("K = 1, predicted", start0 + 3)):
+        _, det, _ = run(branch, windows, n_valid, mode, n_sym, 1, cadence, pred0)
+        if not det.all():
+            fail(f"phase 26 {branch}: not every stream detected")
+    return err, "; ".join(parts)
+
+
+def compare_predicted(label: str, out: dict, ref: dict, strict: bool = True) -> tuple[float, str]:
+    """Kernel C's output (``receive.decode_predicted``) against its plain
+    version's: the cumulative flag equal on every (stream, slot), the fine
+    metric within 1e-5 (-inf where the plain version's is), and the payload
+    bytes of every detected slot equal. ``strict`` (inputs made for the
+    check): start and the packed row's 5-byte head equal on every slot too.
+    Otherwise (a live runtime's windows, where a slot predicted into noise or
+    silence may pass the 0.1 threshold on a metric that ties, or demodulate
+    a channel estimated from silence) start and head are held on detected
+    slots, and a detected slot's payload must parse to the plain version's
+    frame or both fail to parse, as ``compare_receive(by_frame=True)`` holds
+    kernel A; flips are reported. Returns (largest fine error, report)."""
+    import torch
+
+    from audio_modem_tpu_torch import decoder, framing
+
+    got, want = out["packed"], ref["packed"]
+    if got.shape != want.shape or not torch.equal(out["detected"], ref["detected"]):
+        fail(f"{label}: kernel C's slot flags differ from its plain version's")
+    first = want.shape[1] - ref["start"].shape[1]
+    hold = torch.ones_like(ref["detected"]) if strict else ref["detected"]
+    if not torch.equal(out["start"][hold], ref["start"][hold]):
+        fail(f"{label}: kernel C's starts differ from its plain version's")
+    f, g = out["fine_metric"][hold], ref["fine_metric"][hold]
+    fin = torch.isfinite(g)
+    err = (f[fin] - g[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    if not (torch.equal(torch.isfinite(f), fin) and torch.equal(f[~fin], g[~fin])) or err > 1e-5:
+        fail(f"{label}: kernel C's fine metric differs from its plain version's by {err:.3e} (tol 1e-5)")
+    rows = want[..., 0].bool()  # detected slots, slot 0 from kernel A included
+    heads = torch.ones_like(rows) if strict else torch.cat([torch.ones_like(rows[:, :first]), hold], 1)
+    if not torch.equal(got[..., :5][heads], want[..., :5][heads]):
+        fail(f"{label}: kernel C's packed heads differ from its plain version's")
+    same = (got == want).all(-1)
+    bad = rows & ~same
+    if strict and bool(bad.any()):
+        fail(f"{label}: kernel C's payload differs on {int(bad.sum())} detected slots")
+    for i, j in bad.nonzero().tolist():
+        a = framing.parse_payload_bytes(got[i, j, 5:].cpu().numpy().tobytes(), min_len=6)
+        b = framing.parse_payload_bytes(want[i, j, 5:].cpu().numpy().tobytes(), min_len=6)
+        if not (decoder._parse_failed(a) and decoder._parse_failed(b)):
+            fail(f"{label}: stream {i} slot {j} decodes to {a!r:.120} against plain {b!r:.120}")
+    return err, (f"{int(rows.sum())} of {rows.numel()} slots detected, flags{'' if strict else ' (detected: starts)'} "
+                 f"equal, fine err {err:.3e}, payload equal on {int((rows & same).sum())} detected slots"
+                 + (f", {int(bad.sum())} detected slots whose payload parses in neither" if bool(bad.any()) else ""))
+
+
 def main() -> None:
     if not (ROOT / "audio_modem_tpu_torch" / "csrc").is_dir():
         fail(f"no audio_modem_tpu_torch/csrc beside {Path(__file__).name}: run it from a checkout")
@@ -1697,7 +1921,8 @@ def main() -> None:
     from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
-    from audio_modem_tpu_torch.roofline import bound_ms, card_peaks, work_chunks, work_decode_fused, work_stream_demod
+    from audio_modem_tpu_torch.roofline import (bound_ms, card_peaks, work_chunks, work_decode_fused,
+                                                work_decode_predicted, work_stream_demod)
 
     assert_full_fp32()
     dev = torch.device("cuda", 0)
@@ -1776,8 +2001,8 @@ def main() -> None:
         parsed = framing.parse_payload_bytes(row.tobytes())
         if not (isinstance(parsed, framing.DataFrame) and parsed.crc_valid and parsed.seq_num == 0):
             fail("frame-aligned demod: a frame failed its CRC")
-    if min(counts["decode_fused"], counts["decode_chunks_fused"]) < 1:
-        fail(f"a kernel of the turbo path never launched: {counts}")
+    if min(counts["decode_fused"], counts["decode_chunks_fused"]) < 1 or counts["decode_predicted"] != 1:
+        fail(f"a kernel of the turbo path never launched, or kernel C not once a round: {counts}")
     print(f"phase 6 main path: {N_STREAMS} x {K} slots detected, CRC-valid, in sequence; "
           f"{N_STREAMS} aligned frames CRC-valid; launches {counts}", flush=True)
 
@@ -1801,6 +2026,32 @@ def main() -> None:
           f"{bound_a[0] / ms_a:.1%}; kernel B {ms_b:.3f} ms ({kb1:.3f}, {kb2:.3f}) vs plain B "
           f"{plain_ms_b:.3f} ms ({pb1:.3f}, {pb2:.3f}), bound {bound_b[0]:.4f} ms ({bound_b[1]}), "
           f"roofline share {bound_b[0] / ms_b:.1%}", flush=True)
+    # kernel C on the same round, both branches: slot 0 from kernel A (phase 4's output), or every slot
+    # predicted from slot 0's start as the receiver's steady state predicts it
+    c_args = {"slot 0 from kernel A": (ka["start"], ka["detected"], ka["bits"]),
+              "every slot predicted": ((ka["start"] - cadence).to(torch.int32), torch.ones_like(ka["detected"]), None)}
+    err_c, c_times = 0.0, {}
+    for label, (s0, o0, b0) in c_args.items():
+        out_c = receive.decode_predicted(windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)
+        ref_c = receive.decode_predicted_reference(windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)
+        e, rep = compare_predicted(f"kernel C ({label})", out_c, ref_c)
+        cls_c = multi_receiver._classify_round(out_c["packed"].cpu().numpy(), chunk)
+        if not (cls_c[0].all() and cls_c[2].all() and (cls_c[3] == np.arange(K)[None, :]).all()):
+            fail(f"kernel C ({label}): not every slot detected, CRC-valid and in sequence")
+        err_c = max(err_c, e)
+        del out_c, ref_c
+        run_c = lambda: receive.decode_predicted(windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)  # noqa: E731
+        plain_c = lambda: receive.decode_predicted_reference(  # noqa: E731
+            windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)
+        pc1, kc1, kc2, pc2 = (time_ms(f, reps=5, warm=1) for f in (plain_c, run_c, run_c, plain_c))
+        n_pred = K - (b0 is not None)
+        bound_c = bound_ms(*work_decode_predicted(mode, N_STREAMS, windows.shape[1], n_sym, n_pred), peaks)
+        c_times[label] = (statistics.median([kc1, kc2]), statistics.median([pc1, pc2]), bound_c)
+        print(f"phase 7 kernel C ({label}, {n_pred} predicted slots) vs plain: {rep}; all {N_STREAMS} x {K} slots "
+              f"CRC-valid, in sequence; {card} kernel C {c_times[label][0]:.3f} ms ({kc1:.3f}, {kc2:.3f}) vs plain "
+              f"{c_times[label][1]:.3f} ms ({pc1:.3f}, {pc2:.3f}), bound {bound_c[0]:.4f} ms ({bound_c[1]}), "
+              f"roofline share {bound_c[0] / c_times[label][0]:.1%}", flush=True)
+    ms_c, plain_ms_c, bound_c = c_times["every slot predicted"]
 
     # 8. streaming demod against its plain version and kernel B
     stream_frames = {}
@@ -2037,17 +2288,27 @@ def main() -> None:
               f"{label} ({n} samples) {statistics.median(runs):.3f} ms (runs {', '.join(f'{w:.3f}' for w in runs)})"
               for label, (n, runs) in walls25.items()), flush=True)
 
+    # 26. kernel C on edge inputs at full width
+    err26, line = predicted_edges(dev, mode, windows, n_sym, cadence)
+    print(f"phase 26 kernel C on edge inputs {card}: {line}", flush=True)
+
     batch_launches = (launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
                       + launches24 + launches25)
-    print(f"phases 1-25 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-26 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:375",
-         "launches": counts["decode_fused"] + ring_launches + batch_launches["decode_fused"],
+         "launches": counts["decode_fused"] + ring_launches["decode_fused"] + batch_launches["decode_fused"],
          "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18, err21, err22, err23, err24),
          "ms": ms_a, "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
+        {"name": "decode_predicted", "route": "cuda", "source": source,
+         "replaces": "audio_modem_tpu/parallel/multi_receiver.py:314-330",
+         "launches": counts["decode_predicted"] + ring_launches["decode_predicted"]
+         + batch_launches["decode_predicted"],
+         "max_abs_err": max(err_c, err26, PATH_ERR_C[0]), "ms": ms_c, "plain_ms": plain_ms_c,
+         "bound_ms": bound_c[0], "bound_by": bound_c[1], "library_ms": None},
         {"name": "decode_chunks_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:604",
          "launches": counts["decode_chunks_fused"] + batch_launches["decode_chunks_fused"],

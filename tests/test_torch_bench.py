@@ -34,7 +34,7 @@ HEADLINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
 STAGE_KEYS = {
     "spot-check": ["headline_1frame_msps"],
     "headline": ["headline_frames_per_dispatch", "headline_samples_per_dispatch", "headline_percall_ms",
-                 "frames_per_sec", "realtime_streams_per_chip"],
+                 "frames_per_sec", "realtime_streams_per_chip", "predicted_kernel_msps"],
     "batch512": ["batch512_full_pipeline_msps", "batch512_realtime_streams"],
     "batch4096": ["batch4096_full_pipeline_msps", "batch4096_realtime_streams"],
     "dispatch_floor": ["dispatch_floor_ms", "local_dispatch_proxy_ms", "headline_dispatch_bound_msps",
@@ -64,7 +64,7 @@ def test_run_on_cpu_at_tiny_sizes(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("AMT_BENCH_DETAILS", str(details_path))
     reset_launch_counts()
     assert bench.main("cpu", **TINY) == 0
-    assert launch_counts() == {"decode_fused": 0, "decode_chunks_fused": 0, "stream_demod": 0}  # plain versions
+    assert launch_counts() == {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}  # plain versions
     headline = _last_json_line(capsys.readouterr().out)
     assert set(headline) == HEADLINE_KEYS
     assert headline["unit"] == "Msamples/s" and headline["value"] > 0
@@ -83,6 +83,7 @@ def test_run_on_cpu_at_tiny_sizes(tmp_path, monkeypatch, capsys):
     assert d["p50_detect_latency_device_ms"] is None and d["h2d_bandwidth_mbps"] is None
     assert d["roofline"]["assumed_peaks"] is None
     assert set(d["roofline"]["kernels"]) == {"A (decode_fused) at batch4096", "B (decode_chunks_fused) at frame_demod",
+                                             "C (decode_predicted) at the turbo round",
                                              "streaming demod (stream_demod) at long_frame"}
     for r in d["roofline"]["kernels"].values():
         assert r["pct_of_hbm"] is None and r["pct_of_fp32"] is None and r["bound_by"] is None
@@ -212,7 +213,8 @@ def test_budget_skips_are_listed(tmp_path, monkeypatch, capsys):
     assert set(_last_json_line(capsys.readouterr().out)) == HEADLINE_KEYS
     d = json.loads((tmp_path / "bench.json").read_text())["details"]
     assert d["skipped_stages"] == ["batch512"] and "failed_stages" not in d
-    assert d["roofline"]["kernels"] == {}
+    # only kernel C's rate, which the headline (never skipped) measures, has a row
+    assert set(d["roofline"]["kernels"]) == {"C (decode_predicted) at the turbo round"}
 
 
 def test_without_a_card_the_bench_raises():

@@ -1,5 +1,7 @@
-"""Kernels A and B and the streaming demod on the card against their plain
-versions, at small shapes; kernel A's pipeline also at B = 1, 3 and 64 on
+"""Kernels A, B and C and the streaming demod on the card against their
+plain versions, at small shapes; kernel C in both branches of the turbo
+round, on a zeroed slot, clamped predictions and K = 1, and the card's
+round without a plain predicted slot; kernel A's pipeline also at B = 1, 3 and 64 on
 windows that put its tiles' edges to the test; kernel B's pipeline and the
 streaming demod at symbol counts around the demod tile's heights, on short,
 all-zero and unaligned rows. Marked ``cuda``: on a
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from audio_modem_tpu_torch import MODES, api, bench, channel, decoder, framing, phy, sync
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
@@ -280,6 +283,135 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
         receive.stream_demod(sig[:, ::2], ch, ch, torch.ones(2, device=cuda_device), mode, 2)
 
 
+def _predicted_windows(name: str, chunk: int, n: int, k: int, noise: float = 0.01, zero: int | None = None,
+                       seed: int = 31):
+    """n streams of k data frames of ``chunk`` payload bytes on the exact
+    cadence in the turbo round's padded windows, AWGN of amplitude
+    ``noise``. ``zero``: slot whose frame is zeroed on every stream, from
+    twice the refine radius before its preamble to the next slot
+    (``chip_smoke.zeroed_exact``). Returns numpy (mode, n_sym,
+    cadence, windows, n_valid, silence before a frame)."""
+    mode = MODES[name]
+    p = mode.profile
+    sym = p.symbol_len
+    rng = np.random.default_rng(seed)
+    n_sym = framing.num_symbols_for_payload(chunk + 11, mode)
+    pre = p.silence_pre_chunk(False)
+    cadence = framing.estimate_frame_samples(chunk + 11, mode) + pre + p.silence_post_chunk()
+    frames = framing.build_data_chunk_frames([rng.bytes(chunk) for _ in range(n * k)], 0, mode, device="cpu").numpy()
+    w = -(-(k * cadence + 4 * sym + p.fft_size + 2048) // 128) * 128
+    windows = np.zeros((n, w), np.float32)
+    windows[:, : k * cadence] = frames.reshape(n, k * cadence)
+    windows += noise * rng.standard_normal(windows.shape).astype(np.float32)
+    nv = k * cadence
+    if zero is not None:
+        windows = chip_smoke.zeroed_exact(windows, nv, zero * cadence + pre - 6 * p.cp_len, (zero + 1) * cadence)
+    return mode, n_sym, cadence, windows, np.full(n, nv, np.int32), pre
+
+
+def _chain_inputs(x, nv, mode, n_sym, cadence, pred0=None):
+    """(start0, ok0, bits0) as _multi_decode_core hands them to kernel C:
+    slot 0 from kernel A, or the prediction."""
+    if pred0 is None:
+        out0 = receive.decode_fused(x, nv, torch.zeros_like(nv), mode, n_sym)
+        return out0["start"], out0["detected"], out0["bits"]
+    return (pred0 - cadence).to(torch.int32), torch.ones(x.shape[0], dtype=torch.bool, device=x.device), None
+
+
+# (mode, payload bytes, streams, K, branch, case)
+KERNEL_C_CASES = [
+    ("QPSK", 256, 4, 3, "scanned", "plain"), ("QPSK", 256, 4, 3, "predicted", "plain"),
+    ("16-QAM", 256, 4, 3, "predicted", "plain"), ("64-QAM", 256, 4, 3, "predicted", "plain"),
+    ("BPSK-ACOUSTIC", 48, 4, 3, "predicted", "plain"), ("BPSK-REPEAT", 48, 4, 3, "scanned", "plain"),
+    ("BPSK-REPEAT", 48, 4, 3, "predicted", "plain"), ("BPSK-NARROW", 48, 4, 3, "predicted", "plain"),
+    ("QPSK", 256, 4, 3, "scanned", "zeroed"), ("QPSK", 256, 4, 3, "predicted", "zeroed"),
+    ("BPSK-REPEAT", 48, 4, 3, "predicted", "zeroed"), ("QPSK", 256, 4, 3, "predicted", "clamped"),
+    ("QPSK", 256, 4, 1, "scanned", "plain"), ("QPSK", 256, 4, 1, "predicted", "plain"),
+    ("QPSK", 2048, 64, 8, "scanned", "plain"), ("QPSK", 2048, 64, 8, "predicted", "plain"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, chunk, n, k, branch, case", KERNEL_C_CASES)
+def test_kernel_c_matches_plain(cuda_device, name, chunk, n, k, branch, case):
+    """Kernel C (decode_predicted) against its plain version on the card, in
+    both branches (slot 0 from kernel A, or every slot predicted): a slot
+    whose frame is zeroed (its flag and every later one drop; the next
+    slot still finds its frame from the missed slot's start), predictions
+    clamped at w - 1 and at 0 (a silent stream), K = 1, and 64 streams x K
+    = 8 of 2048-byte chunks."""
+    mode, n_sym, cadence, windows, n_valid, pre = _predicted_windows(name, chunk, n, k,
+                                                                     zero=1 if case == "zeroed" else None)
+    w = windows.shape[1]
+    pred0 = None
+    if branch == "predicted":
+        pred0 = np.full(n, pre + 3, np.int32)
+        if case == "clamped":
+            pred0[1:4] = [w - 1, w + 10**6, -(10**6)]
+            windows[3] = 0.0
+    x, nv = torch.from_numpy(windows).to(cuda_device), torch.from_numpy(n_valid).to(cuda_device)
+    p0 = None if pred0 is None else torch.from_numpy(pred0).to(cuda_device)
+    start0, ok0, bits0 = _chain_inputs(x, nv, mode, n_sym, cadence, p0)
+    reset_launch_counts()
+    out = receive.decode_predicted(x, nv, start0, ok0, mode, n_sym, k, cadence, bits0)
+    assert launch_counts()["decode_predicted"] == 1
+    ref = receive.decode_predicted_reference(x, nv, start0, ok0, mode, n_sym, k, cadence, bits0)
+    chip_smoke.compare_predicted(f"kernel C, {name} {branch} {case}", out, ref)  # strict: fails the test
+    det = out["packed"][..., 0].bool().cpu()
+    if case == "zeroed":
+        assert det[:, :1].all() and not det[:, 1:].any()
+        first = k - out["start"].shape[1]
+        assert (out["start"][:, 2 - first] == pre + 2 * cadence).all()
+        assert (out["fine_metric"][:, 2 - first] > 0.9).all()
+    elif case == "clamped":
+        assert not det[1:].any() and out["start"][3].tolist() == [0, cadence, 2 * cadence]
+    else:
+        assert det.all()
+
+
+@pytest.mark.cuda
+def test_card_round_runs_no_plain_slot(cuda_device, monkeypatch):
+    """The turbo round on the card, both branches, out of a ring and over a
+    two-shard mesh: batch.batch_decode_predicted and
+    batch.preprocess_extend, patched to raise, are never called; kernel C
+    launches once a round (once a shard), and the packed rows equal the
+    CPU round's."""
+    from audio_modem_tpu_torch.parallel import multi_receiver as mr
+    from audio_modem_tpu_torch.parallel.mesh import make_mesh
+
+    mode, n_sym, cadence, windows, n_valid, pre = _predicted_windows("QPSK", 256, 4, 3)
+    w = windows.shape[1]
+    zeros = np.zeros(4, np.int32)
+    pred0 = np.full(4, pre + 3, np.int32)
+    host = [mr._multi_decode_core(torch.from_numpy(windows), torch.from_numpy(n_valid), torch.from_numpy(zeros),
+                                  mode, n_sym, 3, cadence).numpy(),
+            mr._multi_decode_core(torch.from_numpy(windows), torch.from_numpy(n_valid), None, mode, n_sym, 3, cadence,
+                                  pred0=torch.from_numpy(pred0)).numpy()]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain predicted slot ran on the card")
+
+    monkeypatch.setattr(batch, "batch_decode_predicted", refuse)
+    monkeypatch.setattr(batch, "preprocess_extend", refuse)
+    x, nv = torch.from_numpy(windows).to(cuda_device), torch.from_numpy(n_valid).to(cuda_device)
+    reset_launch_counts()
+    got = [mr._multi_decode_core(x, nv, torch.zeros_like(nv), mode, n_sym, 3, cadence),
+           mr._multi_decode_core(x, nv, None, mode, n_sym, 3, cadence, pred0=torch.from_numpy(pred0).to(cuda_device))]
+    assert launch_counts()["decode_predicted"] == 2 and launch_counts()["decode_fused"] == 1
+    for g, h in zip(got, host):
+        assert np.array_equal(g.cpu().numpy(), h)
+    params = np.stack([np.zeros(4, np.int32), pred0, n_valid])
+    for mesh, shards in ((None, 1), (make_mesh(devices=[cuda_device] * 2), 2)):
+        ring = mr.DeviceRing(4, w, device=cuda_device, mesh=mesh)
+        ring.write(windows)
+        pparams = params.copy()
+        pparams[0] = ring.rel(0)
+        reset_launch_counts()
+        pred = mr._batch_window_decode_pred_dev(ring, pparams, mode, n_sym, 3, cadence, w)
+        assert launch_counts()["decode_predicted"] == shards and launch_counts()["decode_fused"] == 0
+        assert np.array_equal(mr._to_host(pred), host[1])
+
+
 def _awgn(x: np.ndarray, snr_db: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     power = float(np.mean(x.astype(np.float64) ** 2))
@@ -472,7 +604,7 @@ def test_batch_receiver_on_card_matches_cpu(cuda_device, window_decode):
         runs[str(dev)] = (_receiver_state(rx), launch_counts(), {k: v["calls"] for k, v in rx.timer.report().items()})
     (cpu, cpu_launches, cpu_stages), (card, card_launches, card_stages) = runs.values()
     assert card == cpu and card_stages == cpu_stages
-    assert cpu_launches == {"decode_fused": 0, "decode_chunks_fused": 0, "stream_demod": 0}
+    assert cpu_launches == {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}
     assert card_launches["decode_fused" if window_decode else "decode_chunks_fused"] >= 1
     for (complete, data, *_), f in zip(card, files):
         assert complete and data == f
@@ -636,7 +768,7 @@ def two_cards():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["QPSK", "BPSK-NARROW"])
 def test_kernels_on_a_card_that_is_not_current(two_cards, name):
-    """Kernels A and B and the streaming demod on tensors of cuda:1 while
+    """Kernels A, B and C and the streaming demod on tensors of cuda:1 while
     cuda:0 is current: each launches on its tensors' card (with that card's
     shared-memory attribute) and equals its plain version there; tensors of
     two cards are refused."""
@@ -645,6 +777,7 @@ def test_kernels_on_a_card_that_is_not_current(two_cards, name):
         test_kernel_a_matches_plain(other, name)
         test_kernel_b_matches_plain(other, name)
         test_stream_demod_matches_plain(other, name, 65, 9)
+        test_kernel_c_matches_plain(other, name, 48, 4, 3, "scanned", "plain")
         assert torch.cuda.current_device() == current.index
         x = torch.zeros(2, 4096, device=other)
         with pytest.raises(ValueError, match="one card"):
@@ -678,6 +811,7 @@ def test_sharded_batch_receiver_matches_unsharded(cuda_device, cards):
     (plain, plain_launches, plain_stages), (sharded, sharded_launches, sharded_stages) = runs
     assert sharded == plain and sharded_stages == plain_stages
     assert sharded_launches["decode_fused"] == 2 * plain_launches["decode_fused"] >= 2
+    assert sharded_launches["decode_predicted"] == 2 * plain_launches["decode_predicted"]
     for i, (complete, data, *_) in enumerate(sharded):
         assert complete and data == files[i % 4]
 

@@ -92,7 +92,9 @@ NOT_PORTED = {
     "parallel.batch:_batch_decode_chunk_frames_xla": f"the XLA frame demod: kernel B's plain version `{KR}::decode_chunks_fused_reference`",
     "parallel.batch:_single_signal_decode": f"the one-signal body that XLA vmaps; the plain receive is batched (`{KR}::decode_fused_reference`)",
     "parallel.batch:_predicted_signal_decode": (
-        "the one-signal body that XLA vmaps; `audio_modem_tpu_torch/parallel/batch.py::batch_decode_predicted` runs it batched"),
+        f"the one-signal body that XLA vmaps and scans over the predicted slots; `{KR}::decode_predicted` runs the "
+        f"slots batched (kernel C, `{CU}::amtpu_decode_predicted`; its plain version "
+        "`audio_modem_tpu_torch/parallel/batch.py::batch_decode_predicted` a slot)"),
     "parallel.batch:stream_kernel_preferred": TPU_LAYOUT,
     "parallel.multi_receiver:_ring_append": (
         "the shift ring's write; the port's ring is written in place, chosen on measurement "

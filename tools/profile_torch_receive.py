@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Device-side profile of the port's receive on one NVIDIA GPU, from
 torch.profiler: the time per launch of kernel A (audio_modem_tpu_torch/
-csrc/receive.cu, ``amtpu_decode_fused``, six launches), kernel B
+csrc/receive.cu, ``amtpu_decode_fused``, six launches), kernel C
+(``amtpu_decode_predicted``, five launches, on the turbo round's windows
+with all 32 slots predicted), kernel B
 (``amtpu_decode_chunks_fused``: peak, then CE and demod in one launch) and the streaming demod
 (``amtpu_stream_demod``), and the turbo round's device busy share.
 
@@ -36,8 +38,13 @@ phase 18's transfer (64 streams x 128 chunks through
 and stage split on the host's clock, then under the profiler the device
 time, the card's busy share, device events per round and the largest device
 items; before the profiler, the same transfer at pipeline_depth 8, 1 and 0
-in turns (six walls each). ``--only batch_receiver`` runs that part alone. Prints the card's
-name and power limit first. Needs a CUDA device.
+in turns (six walls each). ``--only batch_receiver`` runs that part alone.
+``--only soak [--soak-mb 7.819264]`` runs the config-5 soak alone
+(``profile_soak``: the 500 MB transfer at 7.819264): wall, stage split and
+seconds a call without the profiler, then device time and busy share under
+it. Prints the card's name and power limit first. Needs a CUDA device.
+
+    python3 tools/profile_torch_receive.py --only soak --soak-mb 7.819264
 """
 
 from __future__ import annotations
@@ -278,10 +285,42 @@ def profile_batch_receiver(dev) -> None:
         print(f"  {name[:100]}: {us / 1e3:.2f} ms in {cnt} events")
 
 
+def profile_soak(dev, per_mb: float) -> None:
+    """The config-5 soak (``tools/soak.py``, 64 streams x ``per_mb`` MB,
+    sqlite): its record's wall and stage split without the profiler, each
+    round kind's seconds a call; then the same soak under the profiler:
+    device time, device events a round and the card's busy share of the
+    un-profiled wall."""
+    from audio_modem_tpu_torch.tools import soak
+
+    rec = soak.run_soak(per_mb, chip_smoke.N_STREAMS, device=dev)
+    if not soak.passed(rec):
+        raise SystemExit(f"profile_torch_receive: FAILED: the soak lost data: {rec['chunks_received']} of "
+                         f"{rec['chunks_expected']} chunks")
+    rep = rec["stage_breakdown"]
+    rounds = sum(rep.get(f"{k}_dispatch", {}).get("calls", 0) for k in ("pred", "multi", "single"))
+    print(f"soak {rec['config']['streams']} x {rec['config']['per_stream_bytes']} B ({rec['chunks_expected']} "
+          f"chunks, sqlite): wall {rec['wall_s']:.3f} s = {rec['sustained_msps']:.2f} Msamples/s (host clock, no "
+          f"profiler); {rounds} rounds; launches {rec['launches']}")
+    print(f"  stages: {chip_smoke.stage_report(rep)}")
+    print("  seconds a call: " + "; ".join(f"{k} {v['seconds'] / v['calls'] * 1e3:.3f} ms ({v['calls']} calls)"
+                                            for k, v in rep.items() if v.get("calls")))
+    events = device_events(lambda: soak.run_soak(per_mb, chip_smoke.N_STREAMS, device=dev), 1)
+    dev_ms = sum(us for _, us, _ in events) / 1e3
+    n_ev = sum(cnt for _, _, cnt in events)
+    busy = f"{dev_ms / 1e3 / rec['wall_s']:.1%}" if dev_ms > 0 else "not measured (the profiler saw no device time)"
+    print(f"  under the profiler (TX, warm-up and transfer): device time {dev_ms:.1f} ms in {n_ev} device events; "
+          f"device busy {busy} of the un-profiled transfer's wall (an upper bound: the profiled run also holds "
+          f"the TX and the warm-up)")
+    for name, us, cnt in sorted(events, key=lambda r: -r[1])[:8]:
+        print(f"  {name[:100]}: {us / 1e3:.2f} ms in {cnt} events")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=["all", "batch_receiver"], default="all")
+    ap.add_argument("--only", choices=["all", "batch_receiver", "soak"], default="all")
+    ap.add_argument("--soak-mb", type=float, default=0.82, help="MB a stream of the soak (7.819264: 500 MB)")
     args = ap.parse_args()
     reps = args.reps
     if not torch.cuda.is_available():
@@ -292,6 +331,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     if args.only == "batch_receiver":
         profile_batch_receiver(dev)
+        return
+    if args.only == "soak":
+        profile_soak(dev, args.soak_mb)
         return
     rng = np.random.default_rng(chip_smoke.SEED)
     mode, frames, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(dev, rng)
@@ -326,6 +368,11 @@ def main() -> None:
     profile_call(f"decode_chunks_fused_stream (plain prologue + streaming demod), the same {ns_n}-symbol frames",
                  lambda: receive.decode_chunks_fused_stream(fr_n, mode_n, ns_n), reps)
     dft_yardsticks("the 64 narrowband frames", fr_n[:, 3 * mode_n.profile.symbol_len :], mode_n, ns_n, reps)
+    start0 = receive.decode_fused(windows, n_valid, min_pos, mode, n_sym)["start"] - cadence
+    ok0 = torch.ones(chip_smoke.N_STREAMS, dtype=torch.bool, device=dev)
+    profile_call(f"kernel C, the turbo round's {chip_smoke.K} slots all predicted [64, {windows.shape[1]}]",
+                 lambda: receive.decode_predicted(windows, n_valid, start0, ok0, mode, n_sym, chip_smoke.K, cadence),
+                 reps, windows.numel() * 4)
     profile_round(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
     profile_ring(dev, windows.shape[1], reps)
     del windows, frames
