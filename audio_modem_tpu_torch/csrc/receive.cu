@@ -9,8 +9,12 @@
 // streaming demod one CTA per (symbol tile, stream).
 //
 // All four end in the same demod (per symbol: DFT at the data and pilot
-// bins, ZF EQ, pilot phase, hard demap, int8 bits), shared below as the
-// device function demod_tile, so one rounding discipline serves all four.
+// bins, ZF EQ, pilot phase, hard demap, int8 bits). A, B and the streaming
+// demod take the DFT as a register-blocked product against the table
+// rx_demod (demod_tile); C as a 512-point real FFT in shared memory
+// (fft_demod_tile), 40x fewer operations than the product. Both tiles end in
+// one epilogue (demod_epilogue), so EQ, pilot phase, demap and bit layout
+// round the same way in all four.
 // Everything is float32. Where a sum decides the coarse
 // sync (preprocess mean, scan block and window sums) the order of additions
 // is the one the plain PyTorch version (sync.py) uses, and the arithmetic
@@ -32,7 +36,11 @@ constexpr int kSumLanes = 1024;  // sync.SUM_LANES
 constexpr int kStride = 16;      // sync.COARSE_STRIDE
 constexpr int kHalfBlocks = 16;  // (kFft / 2) / kStride
 constexpr int kMaxSym = 768;     // longest symbol of any profile (narrowband)
-constexpr int kMaxRegion = 6 * 256 + 1 + kMaxSym - 1;  // refine region at cp = 256
+constexpr int kMaxCp = 256;      // longest cyclic prefix of any profile
+// A staged span of samples: kernel C's prefetch superset of the next slot's
+// refine region at cp = 256 (12 cp + sym samples), plus 3 of alignment in
+// front and the 7 that the refine's last float4 reads reach past the region.
+constexpr int kSpanFloats = 12 * kMaxCp + kMaxSym + 12;
 static_assert(kFft == 2 * kHalfBlocks * kStride, "the scan's window is half a DFT");
 constexpr int kKC = 16;          // taps per staged chunk of the demod table
 static_assert(kFft % kKC == 0 && kKC % 4 == 0, "the taps are whole chunks of whole quads");
@@ -50,6 +58,8 @@ struct Demod {
   const int* pilot_pos;    // [npi]
   int fft, cp, n_active, nd, npi, ncol_pad, bps;
   float qam_scale;
+  const int* bins;         // [nd + npi]: the DFT bin of each data, then pilot, column (FFT tile only)
+  const float* twiddle;    // [fft][2]: cos | -sin of 2 pi k / fft (FFT tile only)
 };
 
 // ---- block reductions (blockDim.x a multiple of 32, at most 1024) ----
@@ -247,12 +257,13 @@ __device__ __forceinline__ void stage_table_chunk(const Demod& d, const TileSmem
   cp_async_commit();
 }
 
-// One entry of the EQ tables: H, and |H|^2 with 0 marking passthrough
-// (|H|^2 <= 1e-10), for data bin j (j < nd) or pilot bin j - nd.
-__device__ __forceinline__ void put_eq(const Demod& d, const TileSmem& s, int j, float hr, float hi) {
+// One entry of the EQ tables hd [3*nd] and hp [3*npi] (re | im | den): H,
+// and |H|^2 with 0 marking passthrough (|H|^2 <= 1e-10), for data bin j
+// (j < nd) or pilot bin j - nd.
+__device__ __forceinline__ void put_eq(const Demod& d, float* hd, float* hp, int j, float hr, float hi) {
   const bool data = j < d.nd;
   const float mag = __fadd_rn(__fmul_rn(hr, hr), __fmul_rn(hi, hi));
-  float* h = data ? s.hd : s.hp;
+  float* h = data ? hd : hp;
   const int m = data ? d.nd : d.npi, i = data ? j : j - d.nd;
   h[i] = hr;
   h[m + i] = hi;
@@ -261,24 +272,24 @@ __device__ __forceinline__ void put_eq(const Demod& d, const TileSmem& s, int j,
 
 // EQ tables from the stream's active-bin channel (ch_re, ch_im [n_active],
 // global). The caller synchronizes before reading them.
-__device__ void eq_tables(const Demod& d, const TileSmem& s, const float* ch_re, const float* ch_im) {
+__device__ void eq_tables(const Demod& d, float* hd, float* hp, const float* ch_re, const float* ch_im) {
   for (int j = threadIdx.x; j < d.nd + d.npi; j += blockDim.x) {
     const int pos = j < d.nd ? d.data_pos[j] : d.pilot_pos[j - d.nd];
-    put_eq(d, s, j, ch_re[pos], ch_im[pos]);
+    put_eq(d, hd, hp, j, ch_re[pos], ch_im[pos]);
   }
 }
 
 // EQ tables from the spectrum of the CE body (``ce`` [ncol]: data re | im,
 // pilot re | im): H = Y * known sign (phy.estimate_channel). rx_demod's
-// columns are rx_active's at the data and pilot positions, so Y is bit for
-// bit channel_estimate's.
-__device__ void eq_tables_from_ce(const Demod& d, const TileSmem& s, const float* ce) {
+// columns are rx_active's at the data and pilot positions, so in the product
+// tile Y is bit for bit channel_estimate's.
+__device__ void eq_tables_from_ce(const Demod& d, float* hd, float* hp, const float* ce) {
   const int nd = d.nd, npi = d.npi;
   for (int j = threadIdx.x; j < nd + npi; j += blockDim.x) {
     const bool data = j < nd;
     const float known = d.ce_known[data ? d.data_pos[j] : d.pilot_pos[j - nd]];
     const float* y = data ? ce + j : ce + 2 * nd + (j - nd);
-    put_eq(d, s, j, __fmul_rn(y[0], known), __fmul_rn(y[data ? nd : npi], known));
+    put_eq(d, hd, hp, j, __fmul_rn(y[0], known), __fmul_rn(y[data ? nd : npi], known));
   }
 }
 
@@ -304,6 +315,69 @@ __device__ __forceinline__ void store_bits(signed char* out, int idx, int bps) {
   }
 }
 
+// Element (k, j) = i / n, i % n of a flat loop i = tid, tid + NT, ... over
+// [rows][n], stepped without a division a step.
+template <int NT>
+struct Walk {
+  int k, j;
+  const int n, dk, dj;
+  __device__ explicit Walk(int n_) : k(threadIdx.x / n_), j(threadIdx.x % n_), n(n_), dk(NT / n_), dj(NT % n_) {}
+  __device__ void next() {
+    j += dj;
+    k += dk;
+    if (j >= n) j -= n, ++k;
+  }
+};
+
+// The demod's epilogue, one body for the product tile and the FFT tile: the
+// spectra of data symbols k0 .. k0+g-1 (row k at spec + k*ld: data re | data
+// im | pilot re | pilot im) and the EQ tables hd, hp (put_eq) -> pilot phase
+// (mean of Im/Re over the equalized pilots with |Re| > 1e-6), ZF EQ, the
+// rotation, hard demap and int8 bits, in phy.demodulate's operations. Every
+// pilot's ratio in parallel into ``ratio`` and ``usable`` (g * npi floats
+// each), then one thread per symbol adds them in pilot order into ``phi``
+// (g floats; NT >= g). The caller synchronizes after writing spec and the
+// tables. ``bits`` is the row's first bit (4-byte aligned); bits go out
+// bin-major, MSB first within a bin.
+template <int NT>
+__device__ void demod_epilogue(const Demod& d, const float* spec, int ld, const float* __restrict__ hd,
+                               const float* __restrict__ hp, float* phi, float* __restrict__ ratio,
+                               float* __restrict__ usable, int k0, int g, signed char* __restrict__ bits) {
+  const int tid = threadIdx.x, nd = d.nd, npi = d.npi, bps = d.bps;
+  for (Walk<NT> w(npi); w.k < g; w.next()) {
+    const int k = w.k, j = w.j, i = k * npi + j;
+    const float* sp = spec + k * ld + 2 * nd;
+    float pr, pi;
+    equalize(sp[j], sp[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f, pr, pi);
+    const bool ok = fabsf(pr) > 1e-6f;
+    ratio[i] = ok ? __fdiv_rn(pi, pr) : 0.0f;
+    usable[i] = ok ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  if (tid < g) {
+    float sum = 0.0f;
+    int cnt = 0;
+    for (int j = 0; j < npi; ++j)
+      if (usable[tid * npi + j] != 0.0f) {
+        sum = __fadd_rn(sum, ratio[tid * npi + j]);
+        ++cnt;
+      }
+    phi[tid] = cnt > 0 ? __fdiv_rn(sum, (float)cnt) : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (Walk<NT> w(nd); w.k < g; w.next()) {
+    const int k = w.k, j = w.j;
+    const float* __restrict__ sp = spec + k * ld;
+    float dr, di;
+    equalize(sp[j], sp[nd + j], hd[j], hd[nd + j], hd[2 * nd + j], hd[2 * nd + j] > 0.0f, dr, di);
+    const float p = phi[k];
+    const float cr = __fadd_rn(dr, __fmul_rn(di, p));
+    const float ci = __fsub_rn(di, __fmul_rn(dr, p));
+    store_bits(bits + ((size_t)(k0 + k) * nd + j) * bps, demap_index(cr, ci, bps, d.qam_scale), bps);
+  }
+}
+
 // Data symbols k0 .. k0+g-1 (the ragged last tile of a row is masked, its
 // missing bodies are zeros) of one stream, symbol k's CP at data_base +
 // k*sym of sample source ``src`` (sample i is src.map(src.x[i]) where
@@ -321,7 +395,7 @@ __device__ void demod_tile(const Src& src, int data_base, int ce_pos, const Demo
   constexpr int R0 = CE ? 1 : 0;  // the tile's row of data symbol k0
   const int rows = g + R0;
   const int tid = threadIdx.x, tn = tid % Cfg::TN, tm = tid / Cfg::TN;
-  const int nd = d.nd, npi = d.npi, bps = d.bps, ncol_pad = d.ncol_pad;
+  const int nd = d.nd, npi = d.npi, ncol_pad = d.ncol_pad;
   const int sym = kFft + d.cp;
   const int ncol = 2 * nd + 2 * npi;
   const TileSmem s = carve<Cfg>(d, smem);
@@ -355,7 +429,7 @@ __device__ void demod_tile(const Src& src, int data_base, int ce_pos, const Demo
   }
   cp_async_commit();
   for (int c = 0; c < kStages - 1; ++c) stage_table_chunk<Cfg>(d, s, c);
-  if (!CE) eq_tables(d, s, ch_re, ch_im);
+  if (!CE) eq_tables(d, s.hd, s.hp, ch_re, ch_im);
   cp_async_wait<kStages - 1>();  // this thread's samples have landed: normalize them in place
   for (int i = tid; i < MT * (kFft / 4); i += NT) {
     const int qd = quad(i), m = row(i), pos = sample(m, qd);
@@ -420,49 +494,212 @@ __device__ void demod_tile(const Src& src, int data_base, int ce_pos, const Demo
   }
   __syncthreads();
   if (CE) {
-    eq_tables_from_ce(d, s, spec);
+    eq_tables_from_ce(d, s.hd, s.hp, spec);
     __syncthreads();
   }
-  spec += R0 * ncol;  // data symbol k0's spectrum
-  // pilot phase: mean of Im/Re over pilots with |Re| > 1e-6. Every pilot's
-  // ratio in parallel (the table's stages are free now), then one thread per
-  // symbol adds them in pilot order.
-  float* __restrict__ ratio = s.tab;          // [g][npi], 0 where unusable
-  float* __restrict__ usable = s.tab + MT * npi;  // [g][npi], 1 or 0
-  const float* __restrict__ hp = s.hp;
-  for (int i = tid; i < g * npi; i += NT) {
-    const int k = i / npi, j = i - k * npi;
-    const float* sp = spec + k * ncol + 2 * nd;
-    float pr, pi;
-    equalize(sp[j], sp[npi + j], hp[j], hp[npi + j], hp[2 * npi + j], hp[2 * npi + j] > 0.0f, pr, pi);
-    const bool ok = fabsf(pr) > 1e-6f;
-    ratio[i] = ok ? __fdiv_rn(pi, pr) : 0.0f;
-    usable[i] = ok ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  if (tid < g) {
-    float sum = 0.0f;
-    int cnt = 0;
-    for (int j = 0; j < npi; ++j)
-      if (usable[tid * npi + j] != 0.0f) {
-        sum = __fadd_rn(sum, ratio[tid * npi + j]);
-        ++cnt;
+  // data symbol k0's spectrum on; the table's stages are free for the pilots' ratios
+  demod_epilogue<NT>(d, spec + R0 * ncol, ncol, s.hd, s.hp, s.phi, s.tab, s.tab + MT * npi, k0, g, bits);
+}
+
+// ---- the FFT tile ----
+//
+// The DFT of a tile's symbols as a 512-point real FFT per row in shared
+// memory, for kernel C. What bounds it on the H100: on paper bytes. A
+// 512-point real FFT is ~11.5 k flops where the product tile's DFT is 2 *
+// 512 * 448 (0.46 M), so the tile's floor is the read of its bodies (the
+// turbo round's 2,048 slots x 42 rows: 172 MB, 51 us at 3.35 TB/s), not the
+// FMA rate. In practice the staging alone runs near the memory rate, and
+// the FFT and the epilogue (two IEEE divisions a point) set the time: they
+// are latency-bound at 24 warps an SM, two CTAs of 384 threads (shared
+// memory allows two CTAs; at 80 registers a thread, 384 threads beat 256,
+// 352 and 448, and 512 with the twiddles read at each use). The design:
+//   - a CTA owns one (stream, slot) and up to kFftRows - 1 of its data
+//     symbols (a 2048-byte QPSK chunk's 41 in one CTA); its row 0 is the CE
+//     body at start + 2*sym + cp, as kernel B's tile has a CE row, so the EQ
+//     tables come from the tile's own spectrum and no channel goes through
+//     device memory;
+//   - every row's 512-sample body comes by 16-byte cp.async from the aligned
+//     address at or below its first sample (the rows of a slot share their
+//     misalignment a, since sym is a multiple of 4), the whole tile in flight
+//     at once, 0 past n_valid and T; the FFT's first read applies the
+//     source's map. Row m lies at m * kFftLd floats, its body at + a;
+//   - 16 threads a row, 24 rows at a time: the body packed as 256 complex
+//     points z[n] = x[2n] + i x[2n+1], a 16 x 16 complex FFT (thread n2 takes
+//     the 16-point DFT of z[16 n1 + n2] in registers, twiddles W256^(n2 k1),
+//     a transpose through shared memory at a pitch of 17 complex, thread k1
+//     the second 16-point DFT), each 16-point DFT a radix-4 pair. Then the
+//     real split at the data and pilot bins only: X[b] = (Z[b] + conj
+//     Z[256-b]) / 2 - i W512^b (Z[b] - conj Z[256-b]) / 2, the forward sign
+//     and no scale, as rx_demod's columns (cos | -sin) hold. The twiddles
+//     are Demod::twiddle, built on the host in float64 and rounded once;
+//   - the spectrum lands in the row's own memory (the layout the product
+//     tile gives), the EQ tables come from row 0 (eq_tables_from_ce), and
+//     demod_epilogue does the rest.
+// The FFT rounds differently from the product, at the 1e-7 level of the
+// spectrum: the bits equal the plain version's wherever no point lies that
+// close to a decision boundary.
+
+constexpr int kFftRows = 42;     // rows per FFT tile: the CE row and up to 41 data symbols
+constexpr int kThreadsFft = 384;  // 24 rows at a time, 16 threads a row (42 rows: 24 + 18)
+constexpr int kFftLd = 544;      // floats a row: the body (512 + a) and the FFT's 16 x 17 complex
+static_assert(kFftLd % 4 == 0 && kFftLd >= 2 * 16 * 17 && kFftLd >= kFft + 4, "a row holds its body and the FFT");
+static_assert(kThreadsFft >= kFftRows, "the pilot phase takes one thread per symbol");
+static_assert(kThreadsFft % 32 == 0, "a row's 16 threads are half of a whole warp (__syncwarp)");
+static_assert(kFft == 2 * 16 * 16, "the plan is a 16 x 16 complex FFT of the packed 512-sample body");
+
+__host__ __device__ inline int fft_smem_floats(const Demod& d) {
+  return kFftRows * kFftLd + round4(3 * d.nd + 3 * d.npi + kFftRows + 2 * kFftRows * d.npi);
+}
+
+// A 4-point DFT, forward sign, of elements I0, I0+S, I0+2S, I0+3S, in place.
+template <int I0, int S>
+__device__ __forceinline__ void dft4(float (&re)[16], float (&im)[16]) {
+  const float ar = re[I0] + re[I0 + 2 * S], ai = im[I0] + im[I0 + 2 * S];
+  const float br = re[I0] - re[I0 + 2 * S], bi = im[I0] - im[I0 + 2 * S];
+  const float cr = re[I0 + S] + re[I0 + 3 * S], ci = im[I0 + S] + im[I0 + 3 * S];
+  const float dr = re[I0 + S] - re[I0 + 3 * S], di = im[I0 + S] - im[I0 + 3 * S];
+  re[I0] = ar + cr, im[I0] = ai + ci;
+  re[I0 + S] = br + di, im[I0 + S] = bi - dr;  // b - i d
+  re[I0 + 2 * S] = ar - cr, im[I0 + 2 * S] = ai - ci;
+  re[I0 + 3 * S] = br - di, im[I0 + 3 * S] = bi + dr;  // b + i d
+}
+
+__device__ __forceinline__ void cmul(float& re, float& im, float2 w) {
+  const float r = re * w.x - im * w.y;
+  im = re * w.y + im * w.x;
+  re = r;
+}
+
+// A 16-point DFT, forward sign, of a[n] in place: n = 4 m1 + m2, DFT4 over
+// m1, twiddles W16^(m2 l1) (w16[e] = W16^e), DFT4 over m2. Bin k = l1 + 4 l2
+// ends at index 4 (k % 4) + k / 4.
+__device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16], const float2 (&w16)[10]) {
+  dft4<0, 4>(re, im);
+  dft4<1, 4>(re, im);
+  dft4<2, 4>(re, im);
+  dft4<3, 4>(re, im);
+#pragma unroll
+  for (int m2 = 1; m2 < 4; ++m2)
+#pragma unroll
+    for (int l1 = 1; l1 < 4; ++l1) cmul(re[m2 + 4 * l1], im[m2 + 4 * l1], w16[m2 * l1]);
+  dft4<0, 1>(re, im);
+  dft4<4, 1>(re, im);
+  dft4<8, 1>(re, im);
+  dft4<12, 1>(re, im);
+}
+
+// Data symbols k0 .. k0+g-1 (g <= kFftRows - 1) of one stream, symbol k's
+// body at data_pos + (k - k0)*sym of sample source ``src`` (sample i is
+// src.map(src.x[i]) where src.has(i), else 0), the CE body at ``ce_pos``:
+// FFT, EQ tables from the CE row, demod_epilogue. ``bits`` is the row's
+// first bit (4-byte aligned).
+template <class Src>
+__device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const Demod& d, int k0, int g,
+                               signed char* __restrict__ bits, float* smem) {
+  constexpr int NT = kThreadsFft;
+  const int tid = threadIdx.x, rows = g + 1, nd = d.nd, npi = d.npi, nbin = nd + npi;
+  const int sym = kFft + d.cp;
+  float* hd = smem + kFftRows * kFftLd;
+  float* hp = hd + 3 * nd;
+  float* phi = hp + 3 * npi;
+  float* ratio = phi + kFftRows;
+  float* usable = ratio + kFftRows * npi;
+  const float2* __restrict__ tw = reinterpret_cast<const float2*>(d.twiddle);
+
+  // bodies in, from the 16-byte aligned sample a before each row's first
+  const int a = (int)(((reinterpret_cast<uintptr_t>(src.x) >> 2) + (unsigned)ce_pos) & 3);
+  const int nq = (a + kFft + 3) >> 2;  // quads a row
+  auto first = [=](int m) { return (m == 0 ? ce_pos : data_pos + (m - 1) * sym) - a; };
+  for (Walk<NT> w(nq); w.k < rows; w.next()) {
+    const int m = w.k, q = w.j, pos = first(m) + 4 * q;
+    float* dst = smem + m * kFftLd + 4 * q;
+    if (src.has(pos) && src.has(pos + 3)) {
+      cp_async16(dst, src.x + pos);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (src.has(pos + e))
+          cp_async4(dst + e, src.x + pos + e);
+        else
+          dst[e] = 0.0f;
       }
-    s.phi[tid] = cnt > 0 ? __fdiv_rn(sum, (float)cnt) : 0.0f;
+    }
+  }
+  cp_async_commit();
+  float2 w16[10];  // W16^e = W512^(32 e)
+#pragma unroll
+  for (int e = 0; e < 10; ++e) w16[e] = __ldg(tw + 32 * e);
+  cp_async_wait<0>();
+  __syncthreads();  // every row has landed, raw: the FFT's first read applies the source's map
+
+  // one FFT per row; a row's 16 threads are one half of a warp, so __syncwarp
+  // orders their shared-memory steps, and every thread runs every pass
+  const int l16 = tid & 15;
+  for (int m0 = 0; m0 < rows; m0 += NT / 16) {
+    const int m = m0 + (tid >> 4);
+    const bool live = m < rows;
+    float* row = smem + (live ? m : 0) * kFftLd;
+    float2* row2 = reinterpret_cast<float2*>(row);
+    const int p0 = first(live ? m : 0) + a;  // the body's first sample; the map where the source has it
+    const bool whole = src.has(p0) && src.has(p0 + kFft - 1);
+    float re[16], im[16];
+#pragma unroll
+    for (int n1 = 0; n1 < 16; ++n1) {  // z[16 n1 + n2] for thread n2
+      const int t = 2 * (16 * n1 + l16);
+      re[n1] = live && (whole || src.has(p0 + t)) ? src.map(row[a + t]) : 0.0f;
+      im[n1] = live && (whole || src.has(p0 + t + 1)) ? src.map(row[a + t + 1]) : 0.0f;
+    }
+    dft16(re, im, w16);
+    __syncwarp();
+#pragma unroll
+    for (int k1 = 0; k1 < 16; ++k1) {
+      const int at = 4 * (k1 & 3) + (k1 >> 2);
+      cmul(re[at], im[at], __ldg(tw + 2 * l16 * k1));  // W256^(n2 k1)
+      if (live) row2[17 * l16 + k1] = make_float2(re[at], im[at]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int n2 = 0; n2 < 16; ++n2) {  // column k1 = this thread's
+      const float2 v = live ? row2[17 * n2 + l16] : make_float2(0.0f, 0.0f);
+      re[n2] = v.x, im[n2] = v.y;
+    }
+    dft16(re, im, w16);
+    __syncwarp();
+#pragma unroll
+    for (int k2 = 0; k2 < 16; ++k2) {  // Z[k1 + 16 k2] in natural order
+      const int at = 4 * (k2 & 3) + (k2 >> 2);
+      if (live) row2[l16 + 16 * k2] = make_float2(re[at], im[at]);
+    }
+    __syncwarp();
+    // the real split at this thread's bins j = l16 + 16 i, held until the row's Z is read
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = l16 + 16 * i;
+      if (live && j < nbin) {
+        const int b = __ldg(d.bins + j);
+        const float2 zb = row2[b & 255], zc = row2[(256 - b) & 255], w = __ldg(tw + b);
+        const float er = 0.5f * (zb.x + zc.x), ei = 0.5f * (zb.y - zc.y);
+        const float orr = 0.5f * (zb.y + zc.y), oi = -0.5f * (zb.x - zc.x);
+        re[i] = er + (w.x * orr - w.y * oi);
+        im[i] = ei + (w.x * oi + w.y * orr);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = l16 + 16 * i;
+      if (live && j < nbin) {
+        const bool data = j < nd;
+        const int c = data ? j : 2 * nd + (j - nd), m_im = data ? nd : npi;
+        row[c] = re[i];
+        row[c + m_im] = im[i];
+      }
+    }
   }
   __syncthreads();
-  const float* __restrict__ hd = s.hd;
-#pragma unroll 4
-  for (int i = tid; i < g * nd; i += NT) {
-    const int k = i / nd, j = i - k * nd;
-    const float* __restrict__ sp = spec + k * ncol;
-    float dr, di;
-    equalize(sp[j], sp[nd + j], hd[j], hd[nd + j], hd[2 * nd + j], hd[2 * nd + j] > 0.0f, dr, di);
-    const float p = s.phi[k];
-    const float cr = __fadd_rn(dr, __fmul_rn(di, p));
-    const float ci = __fsub_rn(di, __fmul_rn(dr, p));
-    store_bits(bits + ((size_t)(k0 + k) * nd + j) * bps, demap_index(cr, ci, bps, d.qam_scale), bps);
-  }
+  eq_tables_from_ce(d, hd, hp, smem);
+  __syncthreads();
+  demod_epilogue<NT>(d, smem + kFftLd, kFftLd, hd, hp, phi, ratio, usable, k0, g, bits);
 }
 
 // CE: H = DFT(body) * known sign (phy.estimate_channel) of the fft samples
@@ -517,7 +754,8 @@ __device__ void channel_estimate(const Src& src, int pos, const Demod& d, float*
 //      first drop goes to an atomicMin. Max is exact in any order, so the
 //      first drop equals sync.first_peak_commit's.
 //   5. refine_ce (B): best and its first index up to the first drop (full
-//      tiles' maxima plus one partial tile), the xcorr refine, the CE.
+//      tiles' maxima plus one partial tile), the xcorr refine (refine, on
+//      the region staged by stage_span), the CE (channel_estimate).
 //   6. demod (symbol tiles, B): demod_tile on the normalized samples at
 //      start + 3*sym, EQ tables built per CTA from the CE.
 // The normalized sample is recomputed from x wherever it is read, so the
@@ -743,11 +981,13 @@ commit_kernel(const float* __restrict__ metric_all, const float* __restrict__ ti
   if (tid == 0 && first != INT_MAX) atomicMin(first_drop + b, first);
 }
 
-// Shared memory of refine_ce: the refine region, the template, the CE body
-// and the block reductions' slots.
+// Shared memory of refine and the CE: two staged spans (kernel C's chain
+// refines from one while the next slot's region lands in the other; kernel
+// A's stage 5 uses the first), the template, the CE body and the block
+// reductions' slots.
 struct RefineSmem {
-  float region[kMaxRegion];
-  float tmpl[kMaxSym];
+  __align__(16) float span[2][kSpanFloats];
+  __align__(16) float tmpl[kMaxSym + 4];
   float body[kMaxSym];
   float redf[33];
   int redi[33];
@@ -758,42 +998,116 @@ struct Refined {
   float fine;
 };
 
-// The xcorr refine of ``pre`` around coarse index c >= 0 over [lo, hi] =
-// [max(c - 3cp, 0), min(nv - sym, c + 3cp)] (sync.refine_xcorr: first index
-// of the best metric, c where no offset is finite), then the CE at the
-// refined start + 2*sym into ch_re_out and ch_im_out ([n_active] each).
-// Kernel A's stage 5 and kernel C's slot chain both run it, so the two
-// cannot drift apart. Every thread of the block calls it and gets the
-// same result.
-__device__ Refined refine_ce(const PreSrc& pre, int c, const float* __restrict__ pre1, float t_energy,
-                             const Demod& d, RefineSmem& sm, float* ch_re_out, float* ch_im_out) {
-  const int tid = threadIdx.x, nt = blockDim.x, sym = d.fft + d.cp;
-  const int radius = 3 * d.cp, n_off = 2 * radius + 1;
-  const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
-  for (int i = tid; i < n_off + sym - 1; i += nt) sm.region[i] = pre(lo + i);
-  for (int i = tid; i < sym; i += nt) sm.tmpl[i] = pre1[i];
-  __syncthreads();
-  float fm = -INFINITY;
-  int dbest = INT_MAX;
-  float mloc[2] = {-INFINITY, -INFINITY};
-  for (int o = tid, r = 0; o < n_off; o += nt, ++r) {
-    float corr = 0.0f, e = 0.0f;
-    for (int j = 0; j < sym; ++j) {
-      const float v = sm.region[o + j];
-      corr = fmaf(v, sm.tmpl[j], corr);
-      e = fmaf(v, v, e);
+// Samples [first, end) of ``pre`` staged in ``buf`` (16-byte aligned shared
+// memory): buf[i] holds sample base + i, base being the sample at or below
+// first whose address is 16-byte aligned. A quad of samples that lies whole
+// inside the row's valid samples comes by one 16-byte cp.async, any other by
+// 4-byte copies and zeros; one commit group. land_span waits for it and
+// applies the source's map.
+struct Span {
+  int base, nq;
+};
+
+__device__ Span stage_span(const PreSrc& pre, int first, int end, float* buf) {
+  const int base = first - (int)(((reinterpret_cast<uintptr_t>(pre.x) >> 2) + (unsigned)first) & 3);
+  const Span sp{base, (end - base + 3) >> 2};
+  for (int q = threadIdx.x; q < sp.nq; q += blockDim.x) {
+    const int pos = base + 4 * q;
+    float* dst = buf + 4 * q;
+    if (pre.has(pos) && pre.has(pos + 3)) {
+      cp_async16(dst, pre.x + pos);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (pre.has(pos + e))
+          cp_async4(dst + e, pre.x + pos + e);
+        else
+          dst[e] = 0.0f;
+      }
     }
-    const float den = sqrtf(__fmul_rn(e, t_energy));
-    if (den > kXcorrMinDenom && lo + o <= hi) mloc[r] = __fdiv_rn(corr, den);
-    fm = fmaxf(fm, mloc[r]);
   }
-  fm = block_max(fm, sm.redf);
-  for (int o = tid, r = 0; o < n_off; o += nt, ++r)
-    if (mloc[r] == fm && isfinite(fm)) dbest = min(dbest, lo + o);
-  dbest = block_min(dbest, sm.redi);
-  const int start = isfinite(fm) ? dbest : c;
-  channel_estimate(pre, start + 2 * sym + d.cp, d, sm.body, ch_re_out, ch_im_out);
-  return Refined{start, fm};
+  cp_async_commit();
+  return sp;
+}
+
+// Waits for this thread's copies (every earlier commit group), maps its
+// samples in place, then synchronizes the block.
+__device__ void land_span(const PreSrc& pre, const Span& sp, float* buf) {
+  cp_async_wait<0>();
+  for (int q = threadIdx.x; q < sp.nq; q += blockDim.x) {
+    const int pos = sp.base + 4 * q;
+    float4* at = reinterpret_cast<float4*>(buf + 4 * q);
+    float4 v = *at;
+    if (pre.has(pos)) v.x = pre.map(v.x);
+    if (pre.has(pos + 1)) v.y = pre.map(v.y);
+    if (pre.has(pos + 2)) v.z = pre.map(v.z);
+    if (pre.has(pos + 3)) v.w = pre.map(v.w);
+    *at = v;
+  }
+  __syncthreads();
+}
+
+// Threads refine needs at most for a profile's cp (ceil((n_off + 3) / 4)).
+__host__ __device__ inline int refine_threads(int cp) { return (6 * cp + 1 + 3 + 3) / 4; }
+
+// The xcorr refine around coarse index c >= 0 over [lo, hi] = [max(c - 3cp,
+// 0), min(nv - sym, c + 3cp)] (sync.refine_xcorr: first index of the best
+// metric, c where no offset is finite), from the normalized region [lo, lo +
+// n_off + sym - 1) at buf + off (buf 16-byte aligned shared memory that
+// holds 7 floats past the region) and the template tmpl (sym floats and 4
+// more, sym a multiple of 4, 16-byte aligned shared memory). Kernel A's stage 5 and
+// kernel C's slot chain both run it, so the two cannot drift apart. Every
+// thread of the block calls it (at least refine_threads(cp) of them) and
+// gets the same result.
+//
+// Register-blocked: thread t owns the 4 consecutive offsets 4t - a .. 4t - a
+// + 3 (a = off % 4, so its reads are 16-byte aligned). Per 4 taps it loads
+// one float4 of the region (the next 4 values slide through registers) and
+// one of the template (a broadcast) for 32 FMAs, where one thread an offset
+// took 2 shared loads per 2 FMAs; both loads run one step ahead, since a
+// stream's chain has only a few warps to hide their latency. Each offset stays one fmaf chain over the
+// taps j = 0 .. sym - 1 in order, for corr and for the energy, so start and
+// fine are bit for bit those of the unblocked loop.
+__device__ Refined refine(const float* __restrict__ buf, int off, int lo, int hi, int c,
+                          const float* __restrict__ tmpl, float t_energy, int sym, int n_off, float* redf,
+                          int* redi) {
+  const int tid = threadIdx.x, a = off & 3;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  if (tid < (n_off + a + 3) >> 2) {
+    const float4* __restrict__ w = reinterpret_cast<const float4*>(buf + (off - a)) + tid;
+    const float4* __restrict__ t4 = reinterpret_cast<const float4*>(tmpl);
+    float corr[4] = {0.0f, 0.0f, 0.0f, 0.0f}, e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float4 cur = w[0], nxt = w[1], t = t4[0];
+#pragma unroll 4
+    for (int j4 = 0; j4 < sym / 4; ++j4) {
+      const float4 nxt2 = w[j4 + 2], t2 = t4[j4 + 1];
+      const float v[8] = {cur.x, cur.y, cur.z, cur.w, nxt.x, nxt.y, nxt.z, nxt.w};
+      const float tt[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          corr[r] = fmaf(v[r + u], tt[u], corr[r]);
+          e[r] = fmaf(v[r + u], v[r + u], e[r]);
+        }
+      cur = nxt, nxt = nxt2, t = t2;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = 4 * tid - a + r;
+      if (o < 0 || o >= n_off) continue;
+      const float den = sqrtf(__fmul_rn(e[r], t_energy));
+      if (den > kXcorrMinDenom && lo + o <= hi) m[r] = __fdiv_rn(corr[r], den);
+    }
+  }
+  float fm = fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3]));
+  fm = block_max(fm, redf);
+  int dbest = INT_MAX;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (m[r] == fm && isfinite(fm)) dbest = min(dbest, lo + 4 * tid - a + r);
+  dbest = block_min(dbest, redi);
+  return Refined{isfinite(fm) ? dbest : c, fm};
 }
 
 // 5. best up to the first drop, xcorr refine over [lo, hi], CE
@@ -837,8 +1151,13 @@ refine_ce_kernel(const float* __restrict__ signals, const int* __restrict__ n_va
     }
   kbest = block_min(kbest, redi);
   const int coarse = best > kAutocorrThreshold ? kbest * kStride : -1;
-  const Refined r = refine_ce(pre, max(coarse, 0), pre1, t_energy, d, sm, ch_re_out + (size_t)b * na,
-                              ch_im_out + (size_t)b * na);
+  const int c = max(coarse, 0), sym = kFft + d.cp, radius = 3 * d.cp, n_off = 2 * radius + 1;
+  const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
+  for (int i = tid; i < sym; i += nt) sm.tmpl[i] = pre1[i];
+  const Span sp = stage_span(pre, lo, lo + n_off + sym - 1, sm.span[0]);
+  land_span(pre, sp, sm.span[0]);
+  const Refined r = refine(sm.span[0], lo - sp.base, lo, hi, c, sm.tmpl, t_energy, sym, n_off, redf, redi);
+  channel_estimate(pre, r.start + 2 * sym + d.cp, d, sm.body, ch_re_out + (size_t)b * na, ch_im_out + (size_t)b * na);
   if (tid == 0) {
     start_out[b] = r.start;
     coarse_out[b] = coarse;
@@ -877,38 +1196,77 @@ receive_demod_kernel(const float* __restrict__ signals, const int* __restrict__ 
 // matrix, slot 0 included where kernel A decoded it.
 //
 // What bounds it on the H100: bytes, one read of the window (234 MB at the
-// turbo round's B = 64, T = 914,688: 70 us), on paper. In practice the
-// demod's float32 product (K x n_sym symbols a stream, see the demod tile)
-// and the serial slot chain set its time. The design:
+// turbo round's B = 64, T = 914,688: 70 us), on paper; the demod reads its
+// symbols once more (the bodies of 2,048 slots x 42 rows, 172 MB) and the
+// refine regions are small. In practice the demod (the FFT tile's compute,
+// see there) and the slot chain set its time. The chain is serial (32
+// slots a stream, one SM each) and has a floor of its own: 2 * 385 * 576
+// FMAs a slot at the standard profile, which no blocking shortens, only
+// spreads. The design:
 //   1-2. pre_stats and combine, kernel A's stages 1-2: the preprocess mean
 //        and scale, so the normalized sample is recomputed from the raw
 //        window wherever it is read (PreSrc; 0 past n_valid and past T, the
 //        zero extension of preprocess_extend) and no copy is made;
 //   3. chain (B): one CTA a stream walks its slots in order, since each
-//      slot's coarse index is the previous slot's refined start; the body
-//      is refine_ce, kernel A's stage 5. A missed slot still hands its
-//      refined start on; only the cumulative flag drops;
-//   4. demod (symbol tiles, slots, B): demod_tile on the normalized samples
-//      at each slot's start + 3*sym with that slot's channel;
+//      slot's coarse index is the previous slot's refined start. Only the
+//      refine is on the chain (the CE feeds the demod alone, which takes it
+//      from its own CE row): the template is staged once, and while slot k
+//      refines, the span that holds slot k+1's region whatever slot k's
+//      start turns out to be (chain_cover) lands by cp.async in the other of
+//      two buffers. The refine is kernel A's stage 5's (refine, register-
+//      blocked). A missed slot still hands its refined start on; only the
+//      cumulative flag drops;
+//   4. demod (symbol tiles, slots, B): fft_demod_tile at each slot's start,
+//      its row 0 the slot's CE body;
 //   5. pack (slots, B): vote, byte pack and head of each slot.
 
-// 3. the slot chain of stream b
-__global__ void __launch_bounds__(kThreadsA)
+// Threads of the chain's CTA for a profile's cp: the refine's, at least four
+// warps for the staging.
+__host__ __device__ inline int chain_threads(int cp) {
+  const int warps = (refine_threads(cp) + 31) / 32;
+  return 32 * (warps > 4 ? warps : 4);
+}
+
+// Samples [first, end) that hold the refine region [max(c - 3cp, 0), that +
+// n_off + sym - 1) of every slot whose coarse index is c = clamp(w, 0, T - 1)
+// for some w in [w_lo, w_hi]: for the chain's next slot w = start + cadence,
+// and start lies within 3 cp of this slot's coarse index. The clamps are
+// monotone, so the first and last w bound the region.
+__device__ void chain_cover(long long w_lo, long long w_hi, int T, int radius, int len, int& first, int& end) {
+  const long long c_lo = w_lo < 0 ? 0 : w_lo > T - 1 ? T - 1 : w_lo;
+  const long long c_hi = w_hi < 0 ? 0 : w_hi > T - 1 ? T - 1 : w_hi;
+  first = (int)(c_lo - radius < 0 ? 0 : c_lo - radius);
+  end = (int)(c_hi - radius < 0 ? 0 : c_hi - radius) + len;
+}
+
+// 3. the slot chain of stream b (chain_threads(cp) threads)
+__global__ void __launch_bounds__(512)
 predicted_chain_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
-                       const float* __restrict__ stats, const float* __restrict__ pre1, float t_energy, Demod d,
+                       const float* __restrict__ stats, const float* __restrict__ pre1, float t_energy, int cp,
                        const int* __restrict__ start0, const unsigned char* __restrict__ ok0, int n_pred,
-                       int cadence, int* start_out, float* fine_out, unsigned char* ok_out, float* ch_re_out,
-                       float* ch_im_out) {
+                       int cadence, int* start_out, float* fine_out, unsigned char* ok_out) {
   __shared__ RefineSmem sm;
-  const int b = blockIdx.x, na = d.n_active;
+  const int b = blockIdx.x, sym = kFft + cp, radius = 3 * cp, n_off = 2 * radius + 1, len = n_off + sym - 1;
   const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
+  for (int i = threadIdx.x; i < sym; i += blockDim.x) sm.tmpl[i] = pre1[i];
   int prev = start0[b];
   bool ok = ok0[b] != 0;
+  int first, end;
+  chain_cover((long long)prev + cadence, (long long)prev + cadence, T, radius, len, first, end);
+  Span sp = stage_span(pre, first, end, sm.span[0]);
   for (int k = 0; k < n_pred; ++k) {
     const size_t s = (size_t)b * n_pred + k;
     const long long want = (long long)prev + cadence;
     const int c = want < 0 ? 0 : want > T - 1 ? T - 1 : (int)want;
-    const Refined r = refine_ce(pre, c, pre1, t_energy, d, sm, ch_re_out + s * na, ch_im_out + s * na);
+    float* buf = sm.span[k & 1];
+    land_span(pre, sp, buf);  // slot k's region; slot k-1's buffer is free
+    const int base = sp.base;
+    if (k + 1 < n_pred) {
+      chain_cover((long long)c - radius + cadence, (long long)c + radius + cadence, T, radius, len, first, end);
+      sp = stage_span(pre, first, end, sm.span[(k + 1) & 1]);
+    }
+    const int lo = max(c - radius, 0), hi = min(pre.nv - sym, c + radius);
+    const Refined r = refine(buf, lo - base, lo, hi, c, sm.tmpl, t_energy, sym, n_off, sm.redf, sm.redi);
     ok = ok && r.fine >= kXcorrThreshold;
     if (threadIdx.x == 0) {
       start_out[s] = r.start;
@@ -920,18 +1278,17 @@ predicted_chain_kernel(const float* __restrict__ signals, const int* __restrict_
 }
 
 // 4. one tile of data symbols of slot blockIdx.y of stream blockIdx.z
-template <class Cfg>
-__global__ void __launch_bounds__(Cfg::kThreads)
+__global__ void __launch_bounds__(kThreadsFft, 2)
 predicted_demod_kernel(const float* __restrict__ signals, const int* __restrict__ n_valid, int T,
-                       const float* __restrict__ stats, const int* __restrict__ start,
-                       const float* __restrict__ ch_re, const float* __restrict__ ch_im, Demod d, int n_pred,
+                       const float* __restrict__ stats, const int* __restrict__ start, Demod d, int n_pred,
                        int n_sym, signed char* bits_out) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.z, k0 = blockIdx.x * Cfg::kMT;
+  const int b = blockIdx.z, k0 = blockIdx.x * (kFftRows - 1), sym = kFft + d.cp;
   const size_t s = (size_t)b * n_pred + blockIdx.y;
   const PreSrc pre = pre_src(signals, n_valid, stats, T, b);
-  demod_tile<Cfg, false>(pre, start[s] + 3 * (kFft + d.cp), 0, d, ch_re + s * d.n_active, ch_im + s * d.n_active,
-                         k0, min(Cfg::kMT, n_sym - k0), bits_out + s * n_sym * d.nd * d.bps, smem);
+  const int st = start[s];
+  fft_demod_tile(pre, st + 2 * sym + d.cp, st + 3 * sym + d.cp + k0 * sym, d, k0, min(kFftRows - 1, n_sym - k0),
+                 bits_out + s * n_sym * d.nd * d.bps, smem);
 }
 
 constexpr int kThreadsPack = 256;
@@ -1095,14 +1452,14 @@ TilingA tiling_a(int T, int n_pos) {
 }
 
 // The demod's description, or fft = 0 where the tile cannot take it: the
-// DFT size is kFft, the table's rows must be whole 16-byte pieces that hold
-// every column, the spectrum must fit over the staged bodies, and a row of
-// bits must start on 4 bytes (store_bits).
+// DFT size is kFft, there are data and pilot bins, the table's rows must be
+// whole 16-byte pieces that hold every column, the spectrum must fit over
+// the staged bodies, and a row of bits must start on 4 bytes (store_bits).
 Demod make_demod(const float* rx_active, const float* ce_known, const float* rx_demod,
                  const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active, int nd,
                  int npi, int ncol_pad, float qam_scale, int bps, const signed char* bits) {
   const int ncol = 2 * nd + 2 * npi;
-  const bool ok = fft == kFft && ncol >= 1 && ncol <= fft && ncol_pad % 4 == 0 && ncol_pad >= ncol &&
+  const bool ok = fft == kFft && nd >= 1 && npi >= 1 && ncol <= fft && ncol_pad % 4 == 0 && ncol_pad >= ncol &&
                   ncol_pad <= TileWide::kCols && bps >= 1 &&
                   reinterpret_cast<uintptr_t>(rx_demod) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(bits) % 4 == 0;
@@ -1160,7 +1517,7 @@ int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_
                        cudaStream_t stream) {
   const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active,
                              nd, npi, ncol_pad, qam_scale, bps, bits);
-  if (T < 1 || n_pos < 1 || d.fft == 0 || cp > 256 || fft + cp > kMaxSym ||
+  if (T < 1 || n_pos < 1 || d.fft == 0 || cp > kMaxCp || fft + cp > kMaxSym || (fft + cp) % 4 != 0 ||
       B < 1 || max_syms < 1)
     return (int)cudaErrorInvalidValue;
   const TilingA g = tiling_a(T, n_pos);
@@ -1193,13 +1550,12 @@ int amtpu_decode_fused(const float* signals, const int* n_valid, const int* min_
 
 // Floats of kernel C's scratch for B rows of T samples and n_pred predicted
 // slots of slot_bits bits: lane subtrees and tile extremes as kernel A's,
-// mean and scale [B, 2], the unused first-drop slot (int) [B], then per
-// (stream, slot) the channel [B, n_pred, n_active] twice and the bits
+// mean and scale [B, 2], the unused first-drop slot (int) [B], then the bits
 // (int8) [B, n_pred, slot_bits].
-long long amtpu_decode_predicted_scratch_floats(int B, int T, int n_pred, int n_active, int slot_bits) {
+long long amtpu_decode_predicted_scratch_floats(int B, int T, int n_pred, int slot_bits) {
   const TilingA g = tiling_a(T, 1);
   return (long long)B * ((long long)g.n_rows_tiles * (kSumLanes + 2 * kLaneSplit) + 3) +
-         (long long)B * n_pred * (2LL * n_active + (slot_bits + 3) / 4);
+         (long long)B * n_pred * ((slot_bits + 3) / 4);
 }
 
 // Kernel C on ``stream``: the n_pred = k_slots or k_slots - 1 predicted
@@ -1208,28 +1564,32 @@ long long amtpu_decode_predicted_scratch_floats(int B, int T, int n_pred, int n_
 // [B, slot_bits]; read when n_pred < k_slots) into ``packed`` [B, k_slots,
 // 5 + n_bytes], n_bytes = n_sym * nd * bps / repetition / 8. The predicted
 // slots' start, fine metric and cumulative flag go to start, fine and ok
-// [B, n_pred]. ``scratch`` holds amtpu_decode_predicted_scratch_floats
-// floats.
+// [B, n_pred]. ``bins`` (int [nd + npi]) and ``twiddle`` (float [fft][2])
+// are the FFT tile's (Demod). ``scratch`` holds
+// amtpu_decode_predicted_scratch_floats floats.
 int amtpu_decode_predicted(const float* signals, const int* n_valid, int B, int T, const int* start0,
                            const unsigned char* ok0, const signed char* bits0, const float* pre1, float t_energy,
-                           const float* rx_active, const float* ce_known, const float* rx_demod,
-                           const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active, int nd,
-                           int npi, int ncol_pad, float qam_scale, int bps, int n_sym, int n_pred, int k_slots,
-                           int cadence, int repetition, float* scratch, int* start, float* fine,
-                           unsigned char* ok, unsigned char* packed, cudaStream_t stream) {
+                           const int* bins, const float* twiddle, const float* rx_active, const float* ce_known,
+                           const float* rx_demod, const int* data_pos, const int* pilot_pos, int fft, int cp,
+                           int n_active, int nd, int npi, int ncol_pad, float qam_scale, int bps, int n_sym,
+                           int n_pred, int k_slots, int cadence, int repetition, float* scratch, int* start,
+                           float* fine, unsigned char* ok, unsigned char* packed, cudaStream_t stream) {
   const int slot_bits = n_sym * nd * bps, n_bytes = slot_bits / repetition / 8;
   const TilingA g = tiling_a(T, 1);
   float* part = scratch;
   float* tile_mm = part + (size_t)B * g.n_rows_tiles * kSumLanes;
   float* stats = tile_mm + (size_t)B * g.n_rows_tiles * kLaneSplit * 2;
   int* first_drop = reinterpret_cast<int*>(stats + (size_t)B * 2);
-  float* ch_re = reinterpret_cast<float*>(first_drop + B);
-  float* ch_im = ch_re + (size_t)B * n_pred * n_active;
-  signed char* bits = reinterpret_cast<signed char*>(ch_im + (size_t)B * n_pred * n_active);
-  const Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active, nd, npi,
-                             ncol_pad, qam_scale, bps, bits);
-  if (T < 1 || B < 1 || n_sym < 1 || k_slots < 1 || repetition < 1 || n_bytes < 1 || d.fft == 0 || cp > 256 ||
-      fft + cp > kMaxSym || !(n_pred == k_slots || (n_pred == k_slots - 1 && bits0 != nullptr)))
+  signed char* bits = reinterpret_cast<signed char*>(first_drop + B);
+  Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active, nd, npi, ncol_pad,
+                       qam_scale, bps, bits);
+  d.bins = bins;
+  d.twiddle = twiddle;
+  // the FFT tile: 16 bins a thread of a row, rows whose bodies share their alignment, a float2 twiddle table
+  if (T < 1 || B < 1 || n_sym < 1 || k_slots < 1 || repetition < 1 || n_bytes < 1 || d.fft == 0 || cp > kMaxCp ||
+      fft + cp > kMaxSym || (fft + cp) % 4 != 0 || nd + npi > 16 * 16 || bins == nullptr ||
+      reinterpret_cast<uintptr_t>(twiddle) % 8 != 0 ||
+      !(n_pred == k_slots || (n_pred == k_slots - 1 && bits0 != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (n_pred > 0) {
@@ -1238,12 +1598,17 @@ int amtpu_decode_predicted(const float* signals, const int* n_valid, int B, int 
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     combine_kernel<<<B, kThreadsA, 0, stream>>>(part, tile_mm, n_valid, T, g.n_rows_tiles, stats, first_drop);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    predicted_chain_kernel<<<B, kThreadsA, 0, stream>>>(signals, n_valid, T, stats, pre1, t_energy, d, start0, ok0,
-                                                        n_pred, cadence, start, fine, ok, ch_re, ch_im);
+    predicted_chain_kernel<<<B, chain_threads(cp), 0, stream>>>(signals, n_valid, T, stats, pre1, t_energy, cp,
+                                                                start0, ok0, n_pred, cadence, start, fine, ok);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = AMTPU_LAUNCH_TILES(predicted_demod_kernel, d, 0, n_sym, dim3(n_pred, B), stream, signals, n_valid, T,
-                                  stats, start, ch_re, ch_im, d, n_pred, n_sym, bits)) != cudaSuccess)
+    const int per = kFftRows - 1;
+    const size_t smem = sizeof(float) * fft_smem_floats(d);
+    if ((err = cudaFuncSetAttribute(predicted_demod_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
       return (int)err;
+    predicted_demod_kernel<<<dim3((n_sym + per - 1) / per, n_pred, B), kThreadsFft, smem, stream>>>(
+        signals, n_valid, T, stats, start, d, n_pred, n_sym, bits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   predicted_pack_kernel<<<dim3(k_slots, B), kThreadsPack, 0, stream>>>(bits, start, ok, bits0, start0, ok0, n_pred,
                                                                        k_slots, slot_bits, repetition, n_bytes,

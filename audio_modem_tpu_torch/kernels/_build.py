@@ -50,6 +50,7 @@ _SIGNATURES = {
         _P, _P, _I, _I,              # signals, n_valid, B, T
         _P, _P, _P,                  # start0, ok0, bits0 (NULL: every slot predicted)
         _P, _F,                      # pre1, t_energy
+        _P, _P,                      # demod_bins, fft_twiddle
         _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
         _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
         _I, _I, _I, _I, _I, _I,      # bps, n_sym, n_pred, k_slots, cadence, repetition
@@ -80,7 +81,7 @@ _SIGNATURES = {
 # C functions that return a size rather than a CUDA error code.
 _SIZES = {
     "amtpu_decode_fused_scratch_floats": [_I, _I, _I],   # B, T, n_pos
-    "amtpu_decode_predicted_scratch_floats": [_I, _I, _I, _I, _I],  # B, T, n_pred, n_active, slot_bits
+    "amtpu_decode_predicted_scratch_floats": [_I, _I, _I, _I],  # B, T, n_pred, slot_bits
     "amtpu_decode_chunks_fused_scratch_floats": [_I],    # B
 }
 

@@ -6,17 +6,21 @@ the whole receive: preprocess, strided Schmidl-Cox scan with first-peak
 commit, xcorr refine, CE, demod, as six launches gridded over (row tiles,
 scan tiles or symbol tiles, streams). ``decode_predicted`` (kernel C,
 ``amtpu_decode_predicted``) runs a turbo round's cadence-predicted slots:
-A's preprocess stages, a chain of refine and CE a stream, one demod launch
-over (symbol tiles, slots, streams), then vote, byte pack and the round's
-packed rows. ``decode_chunks_fused``
+A's preprocess stages, a chain of refines a stream, one demod launch over
+(symbol tiles, slots, streams) whose tiles take the CE from their own row 0
+and the DFT as a 512-point real FFT in shared memory, then vote, byte pack
+and the round's packed rows. ``decode_chunks_fused``
 (kernel B, ``amtpu_decode_chunks_fused``) demodulates frame-aligned chunk
 frames as two launches (peak; CE and demod) gridded over (chunks of the
 frame or symbol tiles, frames). ``stream_demod`` (``stream_demod_kernel``)
 demodulates a data region whose channel and amplitude scale are already
 known, gridded over symbol tiles as well as streams;
 ``decode_chunks_fused_stream`` and ``decode_long_fused`` put a plain
-PyTorch prologue in front of it. All four end in one tiled,
-register-blocked demod (``demod_tile``) against ``Tables.rx_demod``. Each wrapper checks its inputs,
+PyTorch prologue in front of it. A, B and the streaming demod end in one
+tiled, register-blocked product (``demod_tile``) against
+``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
+``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
+demod's epilogue. Each wrapper checks its inputs,
 allocates outputs and scratch with ``torch.empty`` and launches on the
 current stream of its tensors' device, with that device made current for
 the C call (the launch and the shared-memory attribute it sets act on the
@@ -301,9 +305,8 @@ def decode_predicted(
     dev = windows.device
     tabs = profile_tables(mode, dev)
     lib = load_library()
-    scratch = torch.empty(
-        lib.amtpu_decode_predicted_scratch_floats(n, w, n_pred, p.num_active_subs, slot_bits),
-        dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.amtpu_decode_predicted_scratch_floats(n, w, n_pred, slot_bits),
+                          dtype=torch.float32, device=dev)
     out = {
         "packed": torch.empty((n, k_frames, 5 + n_bytes), dtype=torch.uint8, device=dev),
         "start": torch.empty((n, n_pred), dtype=torch.int32, device=dev),
@@ -314,8 +317,8 @@ def decode_predicted(
         code = lib.amtpu_decode_predicted(
             windows.data_ptr(), n_valid.data_ptr(), n, w, start0.data_ptr(), ok0.data_ptr(),
             None if bits0 is None else bits0.data_ptr(),
-            tabs.pre1.data_ptr(), tabs.t_energy, *_table_args(mode, dev),
-            n_sym_frame, n_pred, k_frames, cadence, mode.repetition, scratch.data_ptr(),
+            tabs.pre1.data_ptr(), tabs.t_energy, tabs.demod_bins.data_ptr(), tabs.fft_twiddle.data_ptr(),
+            *_table_args(mode, dev), n_sym_frame, n_pred, k_frames, cadence, mode.repetition, scratch.data_ptr(),
             *(out[k].data_ptr() for k in ("start", "fine_metric", "detected", "packed")),
             torch.cuda.current_stream(dev).cuda_stream,
         )

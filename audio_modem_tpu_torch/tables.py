@@ -10,6 +10,11 @@ preamble and CE waveforms):
   rx_demod   [fft, ncol_pad]    rx_data | rx_pilot | zero columns up to a multiple
                                 of 16, so rows are whole 16-byte pieces: the
                                 table the demod kernels stage (``demod_table``)
+  demod_bins [nd + npi]         the DFT bin of each data, then pilot, column of
+                                rx_demod: the bins kernel C's FFT tile keeps
+  fft_twiddle [fft, 2]          cos | -sin of 2 pi k / fft, k = 0 .. fft-1, in
+                                float64 rounded once: the FFT tile's twiddles
+                                (``fft_twiddles``)
   tx_data    [2*nd, sym]        TX data matrix: (cos | -sin) * 2/N rows of the
                                 data bins, columns cyclically extended by CP
   tx_pilot   [sym]              time-domain pilot row (pilots are 1+0j)
@@ -20,8 +25,8 @@ preamble and CE waveforms):
 
 ``profile_tables`` builds them from ``configs`` alone; ``tables_from_numpy``
 turns the JAX package's numpy arrays into the same tensors (the tests hold
-the two bit-identical) and derives ``rx_demod`` from ``rx_data`` and
-``rx_pilot``.
+the two bit-identical) and derives ``rx_demod`` and ``demod_bins`` from
+``rx_data`` and ``rx_pilot``, and ``fft_twiddle`` from the DFT size.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ class Tables:
     rx_data: torch.Tensor
     rx_pilot: torch.Tensor
     rx_demod: torch.Tensor
+    demod_bins: torch.Tensor
+    fft_twiddle: torch.Tensor
     tx_data: torch.Tensor
     tx_pilot: torch.Tensor
     ce_known: torch.Tensor
@@ -88,6 +95,25 @@ def demod_table(rx_data: np.ndarray, rx_pilot: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.pad(both, ((0, 0), (0, pad))))
 
 
+def demod_bins(rx_data: np.ndarray, rx_pilot: np.ndarray) -> np.ndarray:
+    """The DFT bin of each column of ``demod_table(rx_data, rx_pilot)`` but the
+    padding, int32 [nd + npi]: the angle 2 pi k / fft of its row t = 1 (cos at
+    column j, -sin at column j + n), rounded to the nearest bin."""
+    out = []
+    for m in (np.asarray(rx_data, np.float64), np.asarray(rx_pilot, np.float64)):
+        n = m.shape[1] // 2
+        ang = np.arctan2(-m[1, n:], m[1, :n]) % (2 * np.pi)
+        out.append(np.rint(ang * m.shape[0] / (2 * np.pi)).astype(np.int64) % m.shape[0])
+    return np.concatenate(out).astype(np.int32)
+
+
+def fft_twiddles(fft: int) -> np.ndarray:
+    """float32 [fft, 2]: cos and -sin of 2 pi k / fft, computed in float64 and
+    rounded once (the forward sign, as the RX tables' columns)."""
+    ang = 2.0 * np.pi * np.arange(fft, dtype=np.float64) / fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
 def numpy_tables(profile: OfdmProfile) -> dict:
     """The tables as numpy arrays, built from ``configs`` alone."""
     fft = profile.fft_size
@@ -111,10 +137,13 @@ def numpy_tables(profile: OfdmProfile) -> dict:
 
 def tables_from_numpy(arrays: dict, device) -> Tables:
     """numpy arrays (keys as in ``numpy_tables``) -> float32 / int32 tensors
-    on ``device``, ``rx_demod`` derived from ``rx_data`` and ``rx_pilot``."""
+    on ``device``, ``rx_demod`` and ``demod_bins`` derived from ``rx_data``
+    and ``rx_pilot``, ``fft_twiddle`` from the DFT size."""
     dev = torch.device(device)
     out = {k: torch.as_tensor(np.asarray(arrays[k], np.float32)).contiguous().to(dev) for k in _FLOAT_KEYS}
     out["rx_demod"] = torch.as_tensor(demod_table(arrays["rx_data"], arrays["rx_pilot"])).to(dev)
+    out["demod_bins"] = torch.as_tensor(demod_bins(arrays["rx_data"], arrays["rx_pilot"])).to(dev)
+    out["fft_twiddle"] = torch.as_tensor(fft_twiddles(np.asarray(arrays["rx_active"]).shape[0])).to(dev)
     out.update(
         {k: torch.as_tensor(np.asarray(arrays[k], np.int32)).contiguous().to(dev) for k in _INDEX_KEYS}
     )

@@ -40,7 +40,8 @@ Phases, one line each:
      start, flags and heads equal on every (stream, slot), fine metric
      within 1e-5, payload bytes equal on every slot, all CRC-valid and in
      sequence; its time and its plain version's (median of 5, in turns)
-     beside its bound
+     beside its bound, then its five launches (pre_stats, combine, chain,
+     demod, pack) apart from torch.profiler, each beside C's bound and share
   8. the streaming demod (decode_chunks_fused_stream) against its plain
      version and kernel B on 64 BPSK-NARROW 512-byte chunk frames (598
      symbols of 768 samples) and 64 QPSK 2048-byte chunk frames (41 of 576)
@@ -52,9 +53,11 @@ Phases, one line each:
      decode_long_fused vs kernel A at B = 1 (kernel A beside its bound),
      the streaming demod vs kernel B on the 64 narrowband frames, one
      api.decode of config 2 (host clock)
- 11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9:
-     two checkouts whose kernels agree bit for bit print the same digests
-     (tools/torch_kernel_digest.py prints them for more inputs)
+ 11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9,
+     and of kernel C's chain (start, fine metric, cumulative flag) and
+     packed rows in both branches of phase 7: two checkouts whose kernels
+     agree bit for bit print the same digests (tools/torch_kernel_digest.py
+     prints them for more inputs)
  12. the chunked receive with launch counts from zero: a seeded 1 MiB file
      through api.encode_chunked on the card, brought to the host as audio,
      through api.decode_chunked(device="cuda") twice: complete, 512 chunks,
@@ -230,6 +233,28 @@ PATH_ERR_C = [0.0]  # kernel C's largest fine-metric error on the inputs that pa
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
+    """(kernel name, device ms per call) of every kernel ``fn`` launches,
+    from torch.profiler over ``reps`` calls after one warm call; empty
+    where the profiler sees no device time."""
+    import re
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = re.search(r"\w+_kernel", ev.key)
+            rows.append((name.group(0) if name else ev.key[:60], ev.self_device_time_total / reps / 1e3))
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -1762,7 +1787,7 @@ def zeroed_exact(x, nv: int, lo: int, hi: int):
     return (q / 256).astype(np.float32)
 
 
-def predicted_edges(dev, mode, windows, n_sym: int, cadence: int) -> tuple[float, str]:
+def predicted_edges(dev, mode, windows, n_sym: int, cadence: int, record: list | None = None) -> tuple[float, str]:
     """Phase 26: kernel C against its plain version (``compare_predicted``,
     strict) on edge inputs at full width, both branches of the round where
     they differ (slot 0 from kernel A, or every slot predicted from slot 0's
@@ -1778,6 +1803,7 @@ def predicted_edges(dev, mode, windows, n_sym: int, cadence: int) -> tuple[float
       - BPSK-REPEAT (the vote) at its 512-byte chunks, 64 streams x K = 8:
         every slot detected, CRC-valid and in sequence;
       - K = 1 on phase 3's windows.
+    ``record``, where given, gets (label, kernel C's output) of every case.
     Returns (the largest fine error, a report line)."""
     import numpy as np
     import torch
@@ -1806,6 +1832,8 @@ def predicted_edges(dev, mode, windows, n_sym: int, cadence: int) -> tuple[float
             fail(f"phase 26 {label}: decode_predicted launched {launch_counts()}")
         ref = receive.decode_predicted_reference(x, nv, s0, o0, m, ns, kk, cad, b0)
         e, rep = compare_predicted(f"phase 26 {label}", out, ref)
+        if record is not None:
+            record.append((label, out))
         err = max(err, e)
         parts.append(f"{label} {list(x.shape)} K = {kk}: {rep}")
         return out, out["packed"][..., 0].bool().cpu().numpy(), kk - out["start"].shape[1]
@@ -2030,11 +2058,13 @@ def main() -> None:
     # predicted from slot 0's start as the receiver's steady state predicts it
     c_args = {"slot 0 from kernel A": (ka["start"], ka["detected"], ka["bits"]),
               "every slot predicted": ((ka["start"] - cadence).to(torch.int32), torch.ones_like(ka["detected"]), None)}
-    err_c, c_times = 0.0, {}
+    err_c, c_times, c_digests = 0.0, {}, {}
     for label, (s0, o0, b0) in c_args.items():
         out_c = receive.decode_predicted(windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)
         ref_c = receive.decode_predicted_reference(windows, n_valid, s0, o0, mode, n_sym, K, cadence, b0)
         e, rep = compare_predicted(f"kernel C ({label})", out_c, ref_c)
+        c_digests[label] = {key: hashlib.sha256(out_c[key].cpu().numpy().tobytes()).hexdigest()[:16]
+                            for key in ("start", "fine_metric", "detected", "packed")}
         cls_c = multi_receiver._classify_round(out_c["packed"].cpu().numpy(), chunk)
         if not (cls_c[0].all() and cls_c[2].all() and (cls_c[3] == np.arange(K)[None, :]).all()):
             fail(f"kernel C ({label}): not every slot detected, CRC-valid and in sequence")
@@ -2051,6 +2081,11 @@ def main() -> None:
               f"CRC-valid, in sequence; {card} kernel C {c_times[label][0]:.3f} ms ({kc1:.3f}, {kc2:.3f}) vs plain "
               f"{c_times[label][1]:.3f} ms ({pc1:.3f}, {pc2:.3f}), bound {bound_c[0]:.4f} ms ({bound_c[1]}), "
               f"roofline share {bound_c[0] / c_times[label][0]:.1%}", flush=True)
+        split = launch_split(run_c)
+        print(f"phase 7 kernel C's launches ({label}) {card}, device ms a call (torch.profiler, 5 calls): "
+              + ("; ".join(f"{name} {ms:.4f}" for name, ms in split) if split else "not measured (no device time)")
+              + f"; C's bound {bound_c[0]:.4f} ms ({bound_c[1]}), share of the launches' sum "
+              + (f"{bound_c[0] / sum(ms for _, ms in split):.1%}" if split else "not measured"), flush=True)
     ms_c, plain_ms_c, bound_c = c_times["every slot predicted"]
 
     # 8. streaming demod against its plain version and kernel B
@@ -2173,6 +2208,10 @@ def main() -> None:
                                   ("stream_demod", kl["bits"]))}
     print("phase 11 digests of the kernels' bits (phases 4, 5, 9): "
           + ", ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
+    for label, dig in c_digests.items():
+        print(f"phase 11 digests of kernel C ({label}, phase 7): chain "
+              + ", ".join(f"{k} {dig[k]}" for k in ("start", "fine_metric", "detected"))
+              + f"; packed rows {dig['packed']}", flush=True)
 
     # 12. chunked receive, BASELINE config 3 at full width
     data12 = np.random.default_rng(SEED + 12).bytes(1 << 20)

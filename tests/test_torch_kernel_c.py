@@ -12,8 +12,11 @@ slots of a turbo round, on the CPU.
   0 and at w - 1; K = 1.
 * A model of the kernel's decomposition in plain PyTorch, held to the plain
   loop: stages 1-2's normalized sample recomputed from the raw window
-  (``PreSrc``), the chain's coarse clamp, refine region [lo, hi] and CE body
-  a slot, the demod's symbol tiles a slot, and the pack's head and byte
+  (``PreSrc``), the chain's coarse clamp and refine region [lo, hi] a slot,
+  the demod's FFT tiles a slot (row 0 the CE body, up to kFftRows - 1 data
+  symbols; the spectrum from ``test_torch_fft_demod.fft_bins``, the model
+  of the tile's FFT plan, the EQ tables from row 0, then the epilogue's
+  pilot phase, ZF EQ, rotation and demap), and the pack's head and byte
   offsets in the [n, K, 5 + n_bytes] matrix. It records every sample each
   (stream, slot, tile) reads and checks that the plain loop reads the same
   values there.
@@ -33,10 +36,12 @@ import torch
 
 import chip_smoke
 from audio_modem_tpu.configs import MODES as JMODES
+from test_torch_fft_demod import cu_constant, fft_bins, spectrum_columns
 from audio_modem_tpu.parallel import multi_receiver as jmr
 from audio_modem_tpu_torch import framing, phy, roofline, sync
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+from audio_modem_tpu_torch.ops import constellations
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
 from audio_modem_tpu_torch.parallel import multi_receiver as mr
@@ -45,8 +50,7 @@ from audio_modem_tpu_torch.tables import profile_tables
 torch.set_num_threads(2)
 
 N = 4
-# symbols per demod tile by rx_demod's padded width (csrc/receive.cu TileWide, TileMid, TileNarrow: RM * TM)
-TILE_ROWS = {448: 24, 144: 32, 48: 32}
+FFT_ROWS = cu_constant("kFftRows")  # rows of the demod's FFT tile: the CE row and FFT_ROWS - 1 data symbols
 
 
 def _round(name: str, chunk: int, k: int = 3, noise: float = 0.01, zero: int | None = None, seed: int = 31,
@@ -228,6 +232,29 @@ def _pre_src(x: torch.Tensor, nv: torch.Tensor):
     return sample
 
 
+def _fft_tile(ce_body: torch.Tensor, bodies: torch.Tensor, mode) -> torch.Tensor:
+    """The FFT tile on one CE body [fft] and g data bodies [g, fft]: the
+    spectrum of every row (fft_bins), H = the CE row's spectrum x the known
+    signs at the data and pilot bins, then the epilogue (pilot phase, ZF EQ,
+    rotation, demap): bits [g * bits_per_symbol]."""
+    p = mode.profile
+    tabs = profile_tables(mode, "cpu")
+    nd = p.num_data_subs
+    rows = torch.cat([ce_body[None], bodies]).numpy()
+    re, im = fft_bins(rows, tabs.fft_twiddle.numpy(), tabs.demod_bins.numpy())
+    spec = torch.from_numpy(spectrum_columns(re, im, nd))
+    npi = len(p.pilots)
+    known = torch.cat([tabs.ce_known[tabs.data_pos], tabs.ce_known[tabs.pilot_pos]])
+    h_re = torch.cat([spec[0, :nd], spec[0, 2 * nd : 2 * nd + npi]]) * known
+    h_im = torch.cat([spec[0, nd : 2 * nd], spec[0, 2 * nd + npi :]]) * known
+    d_re, d_im = spec[1:, :nd], spec[1:, nd : 2 * nd]
+    p_re, p_im = spec[1:, 2 * nd : 2 * nd + npi], spec[1:, 2 * nd + npi :]
+    pr, pi = phy.equalize(p_re, p_im, h_re[nd:], h_im[nd:])
+    phi = phy._common_phase(pr, pi)[:, None]
+    dr, di = phy.equalize(d_re, d_im, h_re[:nd], h_im[:nd])
+    return constellations.demap(mode.constellation, dr + di * phi, di - dr * phi).reshape(-1)
+
+
 def _model(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
     """Kernel C slot by slot as its launches index the data. Returns
     (packed [n, k, 5 + n_bytes], start, fine, flag [n, n_pred], reads:
@@ -242,7 +269,7 @@ def _model(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
     n_off = 2 * radius + 1
     bps_sym = bits_per_symbol(mode)
     slot_bits = n_sym * bps_sym
-    mt = TILE_ROWS[min(c for c in TILE_ROWS if c >= tabs.rx_demod.shape[1])]
+    mt = FFT_ROWS - 1  # data symbols a tile
     start = torch.zeros((n, n_pred), dtype=torch.int32)
     fine = torch.zeros((n, n_pred))
     flag = torch.zeros((n, n_pred), dtype=torch.bool)
@@ -261,17 +288,16 @@ def _model(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
             best = metric.amax()
             st = lo + int(torch.argmax(metric)) if torch.isfinite(best) else c
             ok = ok and bool(best >= sync.XCORR_THRESHOLD)
-            ce_at = st + 2 * sym + cp
-            ch_re, ch_im = phy.estimate_channel(sample(b, st + 2 * sym + torch.arange(sym))[None], p)
-            reads[(b, s)] = [("region", lo, lo + n_off + sym - 1), ("ce", ce_at, ce_at + fft)]
+            reads[(b, s)] = [("region", lo, lo + n_off + sym - 1)]
             start[b, s], fine[b, s], flag[b, s] = st, best, ok
-            # 4. the demod: tiles of mt symbols of this slot, each its own CTA
-            base = st + 3 * sym
+            # 4. the demod: FFT tiles of the CE row and mt symbols of this slot, each its own CTA
+            ce_at, base = st + 2 * sym + cp, st + 3 * sym
             for k0 in range(0, n_sym, mt):
                 g = min(mt, n_sym - k0)
-                idx = base + (k0 + torch.arange(g))[:, None] * sym + torch.arange(sym)
-                tile = phy.demodulate(sample(b, idx)[None], ch_re, ch_im, mode)[0]
+                idx = base + cp + (k0 + torch.arange(g))[:, None] * sym + torch.arange(fft)
+                tile = _fft_tile(sample(b, ce_at + torch.arange(fft)), sample(b, idx), mode)
                 bits[b, s, k0 * bps_sym : (k0 + g) * bps_sym] = tile
+                reads[(b, s)] += [("ce", ce_at, ce_at + fft)]
                 reads[(b, s)] += [("tile", base + (k0 + m) * sym + cp, base + (k0 + m + 1) * sym) for m in range(g)]
             prev = st
     # 5. the pack: one CTA a (slot, stream), rows at ((b * k) + slot) * (5 + n_bytes)
@@ -345,13 +371,18 @@ def test_model_of_kernel_c_matches_the_plain_loop(name):
 
 
 def test_model_uses_the_kernels_tile_heights_and_pack_threads():
+    """The model's tile is the kernel's: kFftRows rows (the CE row first),
+    launched over (tiles of kFftRows - 1 symbols, slots, streams) with
+    kThreadsFft threads, 16 a row; the chain one CTA a stream, the pack one
+    a (slot, stream)."""
     src = (Path(receive.__file__).resolve().parent.parent / "csrc" / "receive.cu").read_text()
-    shapes = {name: [int(v) for v in args.split(",")]
-              for name, args in re.findall(r"using Tile(\w+) = Tile<([^>]*)>;", src)}
-    rows = {448: shapes["Wide"], 144: shapes["Mid"], 48: shapes["Narrow"]}
-    assert {c: rm * tm for c, (rm, _, tm, _) in rows.items()} == TILE_ROWS
-    assert {c: rn * tn for c, (_, rn, _, tn) in rows.items()} == {c: c for c in TILE_ROWS}
-    assert "AMTPU_LAUNCH_TILES(predicted_demod_kernel" in src and "predicted_chain_kernel<<<B," in src
+    assert FFT_ROWS == 42 and cu_constant("kThreadsFft") % 32 == 0
+    assert "const int per = kFftRows - 1;" in src
+    assert "predicted_demod_kernel<<<dim3((n_sym + per - 1) / per, n_pred, B), kThreadsFft, smem, stream>>>" in src
+    assert "predicted_chain_kernel<<<B, chain_threads(cp), 0, stream>>>" in src
+    assert "predicted_pack_kernel<<<dim3(k_slots, B), kThreadsPack, 0, stream>>>" in src
+    assert re.search(r"fft_demod_tile\(pre, st \+ 2 \* sym \+ d\.cp, st \+ 3 \* sym \+ d\.cp \+ k0 \* sym", src)
+    assert "AMTPU_LAUNCH_TILES(predicted_demod_kernel" not in src  # no path of C runs the product tile
 
 
 def test_packed_sizes_are_what_the_host_reads():

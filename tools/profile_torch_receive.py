@@ -42,9 +42,12 @@ in turns (six walls each). ``--only batch_receiver`` runs that part alone.
 ``--only soak [--soak-mb 7.819264]`` runs the config-5 soak alone
 (``profile_soak``: the 500 MB transfer at 7.819264): wall, stage split and
 seconds a call without the profiler, then device time and busy share under
-it. Prints the card's name and power limit first. Needs a CUDA device.
+it. ``--only round`` runs kernel C's launches (both branches) and the turbo
+round alone. Prints the card's name and power limit first. Needs a CUDA
+device.
 
     python3 tools/profile_torch_receive.py --only soak --soak-mb 7.819264
+    python3 tools/profile_torch_receive.py --only round
 """
 
 from __future__ import annotations
@@ -118,6 +121,23 @@ def chunk_frames(name: str, size: int, dev, rng):
     fr = framing.build_data_chunk_frames([rng.bytes(size) for _ in range(chip_smoke.N_STREAMS)], 0, mode, device=dev)
     pre = p.silence_pre_chunk(False)
     return fr[:, pre : pre + (3 + n_sym) * p.symbol_len].contiguous(), mode, n_sym
+
+
+def profile_kernel_c(windows, n_valid, min_pos, mode, n_sym: int, cadence: int, reps: int) -> None:
+    """Kernel C's launches (pre_stats, combine, chain, demod, pack) apart, on
+    the turbo round's windows in both branches: all 32 slots predicted, and
+    31 after kernel A's slot 0."""
+    k = chip_smoke.K
+    ka = receive.decode_fused(windows, n_valid, min_pos, mode, n_sym)
+    ok0 = torch.ones_like(ka["detected"])
+    start0 = (ka["start"] - cadence).to(torch.int32)
+    profile_call(f"kernel C, the turbo round's {k} slots all predicted [64, {windows.shape[1]}]",
+                 lambda: receive.decode_predicted(windows, n_valid, start0, ok0, mode, n_sym, k, cadence),
+                 reps, windows.numel() * 4)
+    profile_call(f"kernel C, the turbo round's {k - 1} slots after kernel A [64, {windows.shape[1]}]",
+                 lambda: receive.decode_predicted(windows, n_valid, ka["start"], ka["detected"], mode, n_sym, k,
+                                                  cadence, ka["bits"]),
+                 reps, windows.numel() * 4)
 
 
 def profile_round(windows, n_valid, min_pos, mode, n_sym: int, cadence: int, reps: int) -> None:
@@ -319,7 +339,7 @@ def profile_soak(dev, per_mb: float) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=["all", "batch_receiver", "soak"], default="all")
+    ap.add_argument("--only", choices=["all", "round", "batch_receiver", "soak"], default="all")
     ap.add_argument("--soak-mb", type=float, default=0.82, help="MB a stream of the soak (7.819264: 500 MB)")
     args = ap.parse_args()
     reps = args.reps
@@ -337,6 +357,10 @@ def main() -> None:
         return
     rng = np.random.default_rng(chip_smoke.SEED)
     mode, frames, windows, n_valid, min_pos, n_sym, cadence = chip_smoke.turbo_windows(dev, rng)
+    if args.only == "round":
+        profile_kernel_c(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
+        profile_round(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
+        return
     profile_call("kernel A, turbo slot 0 [64, 914688]",
                  lambda: receive.decode_fused(windows, n_valid, min_pos, mode, n_sym), reps, windows.numel() * 4)
     sym = mode.profile.symbol_len
@@ -368,11 +392,7 @@ def main() -> None:
     profile_call(f"decode_chunks_fused_stream (plain prologue + streaming demod), the same {ns_n}-symbol frames",
                  lambda: receive.decode_chunks_fused_stream(fr_n, mode_n, ns_n), reps)
     dft_yardsticks("the 64 narrowband frames", fr_n[:, 3 * mode_n.profile.symbol_len :], mode_n, ns_n, reps)
-    start0 = receive.decode_fused(windows, n_valid, min_pos, mode, n_sym)["start"] - cadence
-    ok0 = torch.ones(chip_smoke.N_STREAMS, dtype=torch.bool, device=dev)
-    profile_call(f"kernel C, the turbo round's {chip_smoke.K} slots all predicted [64, {windows.shape[1]}]",
-                 lambda: receive.decode_predicted(windows, n_valid, start0, ok0, mode, n_sym, chip_smoke.K, cadence),
-                 reps, windows.numel() * 4)
+    profile_kernel_c(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
     profile_round(windows, n_valid, min_pos, mode, n_sym, cadence, reps)
     profile_ring(dev, windows.shape[1], reps)
     del windows, frames
