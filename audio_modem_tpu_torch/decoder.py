@@ -12,7 +12,7 @@ Every entry point takes a ``device``, ``"cuda"`` unless the caller names the
 CPU. A numpy signal is copied there; a tensor must already lie there.
 Nothing moves to the CPU on its own, and nothing falls back to it: without a
 CUDA device a call that does not pass ``device="cpu"`` raises, and on CUDA
-the demod runs the streaming-demod kernel or raises.
+the device core runs kernel A (``decode_fused``) or raises.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from audio_modem_tpu_torch.framing import (
     parse_payload_bytes,
 )
 from audio_modem_tpu_torch.kernels import resolve_device
-from audio_modem_tpu_torch.kernels.receive import decode_long_fused, stream_demod
+from audio_modem_tpu_torch.kernels.receive import decode_fused, stream_demod
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 
@@ -82,18 +82,17 @@ def _to_bytes(bits: torch.Tensor) -> bytes:
 
 def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: ModemMode, max_syms: int):
     """One padded signal -> (coarse, start, fine_metric, bits, ch_re, ch_im),
-    through ``decode_long_fused`` at every length.
+    through kernel A (``decode_fused``) as a batch of one, at every length.
 
-    The decoder always has B = 1, so on CUDA the demod must spread over
-    symbols, not streams: ``decode_long_fused``'s streaming demod grids
-    them over the card, with the front end in plain PyTorch as the JAX
-    package runs it in XLA. On the CPU the same call runs the plain
-    pipeline (the streaming demod's plain version), which is the JAX
-    package's XLA formulation (its ``_decode_core``)."""
+    The JAX package sends every signal its VMEM gate admits to its kernel
+    A; Hopper has no such gate, since kernel A grids its stages over row,
+    scan and symbol tiles. On the CPU the same call runs kernel A's plain
+    version, which is the JAX package's XLA formulation (its
+    ``_decode_core``)."""
     dev = signal.device
     nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
     mp = torch.tensor([min_pos], dtype=torch.int32, device=dev)
-    out = decode_long_fused(signal[None], nv, mp, mode, max_syms)
+    out = decode_fused(signal[None], nv, mp, mode, max_syms)
     return tuple(out[k][0] for k in _CORE_KEYS)
 
 

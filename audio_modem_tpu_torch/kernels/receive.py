@@ -16,7 +16,11 @@ frame or symbol tiles, frames). ``stream_demod`` (``stream_demod_kernel``)
 demodulates a data region whose channel and amplitude scale are already
 known, gridded over symbol tiles as well as streams;
 ``decode_chunks_fused_stream`` and ``decode_long_fused`` put a plain
-PyTorch prologue in front of it. A, B and the streaming demod end in one
+PyTorch prologue in front of it. The single-signal decoder runs kernel A
+at B = 1 (``decoder._core_dispatch``), as the JAX package runs its kernel
+A on every signal its VMEM gate admits; ``decode_long_fused`` is the JAX
+package's route past that gate, kept under its name and on no path of
+the port. A, B and the streaming demod end in one
 tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
@@ -404,8 +408,9 @@ def decode_long_fused(
     end (preprocess, strided scan, xcorr refine, re-align, CE; the JAX
     package runs it in XLA too), then ``stream_demod`` at scale 1. Same
     output dict as ``decode_fused``; its plain version is
-    ``decode_fused_reference``. The decoder's route at every length, as
-    the JAX package's ``decode_long_fused`` is."""
+    ``decode_fused_reference``. The JAX package's decoder takes this route
+    only for a signal past its kernel A's VMEM gate; the port's decoder
+    runs kernel A at every length, so no path of the port calls this."""
     out, data = _front_end(signals, n_valid, min_pos, mode, max_syms)
     ones = torch.ones(data.shape[0], dtype=torch.float32, device=data.device)
     out["bits"] = stream_demod(data, out["ch_re"], out["ch_im"], ones, mode, max_syms)

@@ -3,8 +3,8 @@ audio_modem_tpu/parallel/batch.py; BASELINE config 5).
 
 The batched full receive goes through kernel A
 (``kernels.receive.decode_fused``) at every window length: Hopper has no
-VMEM gate, and kernel A grids its stages over tiles and streams. A single
-signal (B = 1) takes the decoder's route, ``decode_long_fused`` (see
+VMEM gate, and kernel A grids its stages over tiles and streams. The
+single-signal decoder runs the same kernel at B = 1 (see
 ``decoder._core_dispatch``). The frame-aligned demod goes through
 kernel B. ``batch_decode_predicted`` (refine + CE + demod of one
 cadence-predicted slot) is plain PyTorch: the turbo round's plain version

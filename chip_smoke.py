@@ -47,12 +47,16 @@ Phases, one line each:
      symbols of 768 samples) and 64 QPSK 2048-byte chunk frames (41 of 576)
   9. the single-signal decode with launch counts from zero: config 2 and a
      clean 32,736-byte QPSK legacy frame through api.decode on the card,
-     exact bytes; decode_long_fused and kernel A at B = 1 against their
+     exact bytes, kernel A (decode_fused, B = 1) launched once per call of
+     the decoder's device core and the streaming demod not at all; kernel
+     A against its plain version on the inputs the decoder gave it (phase
+     17's checks); decode_long_fused and kernel A at B = 1 against their
      plain version on config 2's padded signal (the checks of phase 4)
  10. times: stream_demod vs plain on config 2's 12,361-symbol data region,
      decode_long_fused vs kernel A at B = 1 (kernel A beside its bound),
-     the streaming demod vs kernel B on the 64 narrowband frames, one
-     api.decode of config 2 (host clock)
+     the streaming demod vs kernel B on the 64 narrowband frames, and the
+     host wall of api.decode of config 2 through kernel A and through
+     decode_long_fused (median of 10 a route, in turns)
  11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9,
      and of kernel C's chain (start, fine metric, cumulative flag) and
      packed rows in both branches of phase 7: two checkouts whose kernels
@@ -109,12 +113,13 @@ Phases, one line each:
  19. the application layer: the port's CLI (cli.main in this process, on
      the card by default) with launch counts from zero before each
      subcommand: encode -> decode of a seeded 32,736-byte file (one QPSK
-     legacy frame), encode -> receive of the 1 MiB file of phase 12 (513
+     legacy frame, kernel A launched), encode -> receive of the 1 MiB file of phase 12 (513
      frames), play --no-pace of it into an os.pipe with listen on the other
      end in f32 and s16 (real-time factor printed), testsignal -> diagnose
      (detected, ber 0, excellent), diagnose --live through a channel of
      20 dB SNR, 100 ppm drift and a 50-sample echo (detected), sweep, info;
      every file exact, stream_demod launched at least once per frame
+     received
  20. selective-repeat ARQ: arq.run_arq_session of the 1 MiB file with every
      20th data-chunk frame zeroed in round 1 (exact, round 2 resends the
      26 dropped chunks and only them); arq.run_batch_arq_session of 64
@@ -122,11 +127,13 @@ Phases, one line each:
      BatchReceiver with one chunk frame zeroed on every even stream in
      round 1 (64 exact files, even streams resend one chunk, kernel B
      launched); diag.ber_vs_snr of 64 x 64 QPSK symbols (0 at 30 dB, no
-     rise beyond noise as the SNR grows); walls per round. Then kernel B
-     and the streaming demod against their plain versions on the first
-     input of each shape phases 19-20 gave them: B bit for bit, the
-     streaming demod bit for bit on every symbol that carries signal (its
-     junk symbols, constant or past the signal's end, reported apart)
+     rise beyond noise as the SNR grows); walls per round; kernel A
+     launched by each request decode. Then kernels A and B and the
+     streaming demod against their plain versions on the first input of
+     each shape phases 19-20 gave them: A by phase 17's checks, B bit for
+     bit, the streaming demod bit for bit on every symbol that carries
+     signal (its junk symbols, constant or past the signal's end, reported
+     apart)
  21. the receiver sharded over a mesh: phase 18's transfer through
      BatchReceiver(mesh=...) on two shards of cuda:0, on make_mesh() (every
      card) and, with two or more cards, on make_mesh(2) (with one card it
@@ -174,8 +181,9 @@ Phases, one line each:
      test_torch_edge_cases.py, test_torch_decoder.py) on the card, each
      decode with launch counts from zero and its result equal to the
      port's own CPU decode of the same host audio (every field of the
-     frame, preamble_idx, fine_metric within 1e-5), stream_demod launched
-     at least once a decode: the five golden WAVs of tests/golden (the
+     frame, preamble_idx, fine_metric within 1e-5), kernel A launched at
+     least once a decode and the streaming demod only where the decode went
+     on to a chunk frame: the five golden WAVs of tests/golden (the
      manifest's file name and sha256); BASELINE config 1 (1 KB, one
      BPSK-NARROW frame from the card's TX, clean); config 4 (2,000 bytes of
      16-QAM through echoes, gain, DC and AWGN, as its CPU test makes it)
@@ -183,12 +191,16 @@ Phases, one line each:
      file ("Invalid data length"); 205, 410 and 1,025-byte payloads that
      fill their symbols; 200, 253 and 300-byte names (the last collides
      with a frame magic); a frame behind a lag-periodic decoy, through
-     api.decode and decoder.decode_raw (the scan's resume); two-chunk
+     api.decode and decoder.decode_raw (the scan's resume); a preamble cut
+     off at the end of its padded bucket (QPSK, BPSK-NARROW); silence and
+     noise ("Preamble not detected"); two-chunk
      transfers in 16-QAM, BPSK-REPEAT and 64-QAM through
-     api.decode_chunked (once a frame). Then the streaming demod against
-     its plain version on every input of those decodes (phase 20's rule),
-     the phase's wall, and the host wall of api.decode for config 1 and
-     config 4 at 28 dB (median of 10 after a warm call)
+     api.decode_chunked (once a frame). Then kernel A (phase 17's checks,
+     the decoy's resume with min_pos > 0 among them) and the streaming demod
+     (phase 20's rule) against their plain versions on every input of those
+     decodes, the phase's wall, and the host wall of api.decode for config
+     1 and config 4 at 28 dB through kernel A and through decode_long_fused
+     (median of 10 a route, in turns)
  26. kernel C against its plain version on edge inputs at full width, in
      both branches: phase 3's 64 x 32 QPSK windows with slot 5's frame
      zeroed (exact DC removal: flags drop from slot 5 on, slot 6 finds its
@@ -199,6 +211,7 @@ Phases, one line each:
 
 then the kernels as one JSON line (time, plain time, launches summed over
 the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero
+(kernel A's on the decode path of phases 9, 19, 20 and 25 among them)
 (kernel C's time and bound: every slot predicted, phase 7),
 the bound: bytes over the card's memory rate or float32 operations over
 its float32 peak, whichever is larger, from this run's shapes, each DFT
@@ -592,10 +605,12 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     that the batched path hands kernels A and B (``batch.decode_fused`` and
     ``batch.decode_chunks_fused``), that the turbo round hands kernel C
     (``multi_receiver.decode_predicted``; its shape carries K and the
-    branch) and that the decoder hands the streaming
-    demod (``decoder.stream_demod``, and ``receive.stream_demod`` under
-    ``decode_long_fused``), each looked up at call time, in ``store``, keyed
-    by (kernel, tag, shape, symbols). The kernels run as they would;
+    branch), that the decoder's device core hands kernel A
+    (``decoder.decode_fused``, B = 1; tagged "``tag`` decoder", and
+    "``tag`` decoder resume" for a try with min_pos > 0) and that the
+    decoder hands the streaming demod (``decoder.stream_demod``, and
+    ``receive.stream_demod``), each looked up at call time, in ``store``,
+    keyed by (kernel, tag, shape, symbols). The kernels run as they would;
     ``check_path_inputs`` holds them to their plain versions afterwards.
     With ``shards`` > 1 (a receiver sharded over a mesh, whose rounds call
     kernel A once a shard, in shard order) kernel A's inputs are kept per
@@ -608,7 +623,7 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
 
     real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
-    real_c = multi_receiver.decode_predicted
+    real_c, real_d = multi_receiver.decode_predicted, decoder.decode_fused
     calls_a: Counter = Counter()
     calls_c: Counter = Counter()
 
@@ -623,6 +638,13 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
         if key not in store:
             store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
         return real_a(signals, n_valid, min_pos, mode, max_syms)
+
+    def record_d(signals, n_valid, min_pos, mode, max_syms):
+        resume = " resume" if bool((min_pos > 0).any()) else ""
+        key = ("decode_fused", f"{tag_of(mode)} decoder{resume}", tuple(signals.shape), max_syms)
+        if key not in store:
+            store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
+        return real_d(signals, n_valid, min_pos, mode, max_syms)
 
     def record_c(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
         shape = (*windows.shape, k, "predicted" if bits0 is None else "scanned")
@@ -648,13 +670,13 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
 
     batch.decode_fused, batch.decode_chunks_fused = record_a, record_b
     receive.stream_demod = decoder.stream_demod = record_s
-    multi_receiver.decode_predicted = record_c
+    multi_receiver.decode_predicted, decoder.decode_fused = record_c, record_d
     try:
         yield store
     finally:
         batch.decode_fused, batch.decode_chunks_fused = real_a, real_b
         receive.stream_demod = decoder.stream_demod = real_s
-        multi_receiver.decode_predicted = real_c
+        multi_receiver.decode_predicted, decoder.decode_fused = real_c, real_d
 
 
 def b_points(frames, mode, n_sym: int) -> tuple:
@@ -1275,20 +1297,76 @@ def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
 
 
 GOLDEN = ROOT / "tests" / "golden"
+# (mode, samples, preamble start before the end): the inputs of
+# tests/test_torch_decoder.py::test_preamble_cut_off_at_the_end_of_the_padded_buffer
+CUT_PREAMBLES = (("QPSK", 32768, 586), ("BPSK-NARROW", 49152, 778))
 
 
-def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
+def cut_preamble(name: str, total: int, tail: int):
+    """``total`` samples of seeded noise at 1e-3 (a whole padded bucket) with
+    a legacy frame's preamble starting ``tail`` samples before the end, as
+    the CPU test makes it: the refine region reaches past the padded
+    signal, and the decode must find the true start, then fail its CE."""
+    import numpy as np
+
+    from audio_modem_tpu_torch import MODES, framing
+
+    mode = MODES[name]
+    clean = framing.build_transmit_signal(b"cut" * 40, mode, "t.bin", device="cpu").numpy()
+    pre = mode.profile.silence_pre_legacy()
+    sig = (1e-3 * np.random.default_rng(1).standard_normal(total)).astype(np.float32)
+    sig[total - tail :] += clean[pre : pre + tail]
+    return sig
+
+
+def decode_walls(sig, name: str, dev, reps: int = 5) -> dict:
+    """Host wall in ms of ``api.decode(sig, name, device=dev)`` through each
+    route of the decoder's device core: kernel A at B = 1 (the decoder's
+    route) and ``decode_long_fused`` (the route it replaced, put in for these
+    calls alone), a warm call of each, then ``reps`` calls a route in the
+    turns A, long, long, A. Returns {route: its 2 * ``reps`` walls}."""
+    from audio_modem_tpu_torch import api, decoder
+    from audio_modem_tpu_torch.kernels import receive
+
+    routes = {"kernel A": decoder.decode_fused, "decode_long_fused": receive.decode_long_fused}
+    walls: dict = {route: [] for route in routes}
+    try:
+        for route in ("kernel A", "decode_long_fused", "decode_long_fused", "kernel A"):
+            decoder.decode_fused = routes[route]
+            if not walls[route]:
+                api.decode(sig, name, device=dev)
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                api.decode(sig, name, device=dev)
+                walls[route].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        decoder.decode_fused = routes["kernel A"]
+    return walls
+
+
+def walls_line(label: str, n: int, walls: dict) -> str:
+    """``decode_walls``' result as one report: each route's median and runs."""
+    return f"{label} ({n} samples): " + ", ".join(
+        f"{route} {statistics.median(runs):.3f} ms (runs {', '.join(f'{w:.3f}' for w in runs)})"
+        for route, runs in walls.items())
+
+
+def contract_phase(dev, store: dict) -> tuple[Counter, str, dict, tuple]:
     """Phase 25: the JAX package's test contract on the card. Each input is
     host audio (``tests/golden``'s WAVs, or made by the port, on the card
     unless its CPU test makes it on the CPU), decoded with ``device=dev`` and
     again with ``device="cpu"``: the card's result must equal the CPU's
     (every field of the frame or the chunked result, preamble_idx,
     fine_metric within 1e-5) and pass the JAX test's own assertion, with
-    ``stream_demod`` launched at least once a decode, once a frame for
-    ``decode_chunked``, counted from zero for each. The streaming demod's
-    inputs go to ``store`` under each case's label. Returns (launches, line,
-    host walls in ms of ten ``api.decode`` calls after a warm one, for
-    config 1 and for config 4 at 28 dB, with their signals' lengths)."""
+    launch counts from zero for each: ``decode_fused`` (kernel A, the
+    decoder's device core) at least once an ``api.decode`` or
+    ``decode_raw``, ``stream_demod`` there only where the decode went on to
+    a chunk frame (``decoder.decode_chunk_frame``, the xcorr
+    re-acquisition), and once a frame for ``decode_chunked``. Kernel A's and
+    the streaming demod's inputs go to ``store`` under each case's label.
+    Returns (launches, line, ``decode_walls`` of config 1 and of config 4 at
+    28 dB, with their signals' lengths, the tags of kernel A's inputs that
+    carry no noise: ``check_path_inputs``' ``clean``)."""
     import dataclasses
 
     import numpy as np
@@ -1312,16 +1390,30 @@ def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
             return f"FrameError({r.error!r})"
         return f"{type(r).__name__} crc_valid={r.crc_valid} {len(r.data)} B"
 
-    def on_card(fn, label: str):
-        """``fn()`` with launch counts from zero and the streaming demod's
-        inputs kept under ``label``; returns (its result, the launches)."""
-        with path_inputs(store, label):
-            reset_launch_counts()
-            out = fn()
-            counts = launch_counts()
-        if counts["stream_demod"] < 1:
-            fail(f"phase 25 {label}: stream_demod never launched: {counts}")
-        return out, counts
+    def on_card(fn, label: str, chunked: bool = False):
+        """``fn()`` with launch counts from zero and the kernels' inputs kept
+        under ``label``; returns (its result, the launches, the chunk frames
+        the decoder decoded)."""
+        real_chunk, frames = decoder.decode_chunk_frame, []
+
+        def chunk_frame(*args, **kw):
+            frames.append(1)
+            return real_chunk(*args, **kw)
+
+        decoder.decode_chunk_frame = chunk_frame
+        try:
+            with path_inputs(store, label):
+                reset_launch_counts()
+                out = fn()
+                counts = launch_counts()
+        finally:
+            decoder.decode_chunk_frame = real_chunk
+        if chunked:
+            if counts["stream_demod"] < 1:
+                fail(f"phase 25 {label}: stream_demod never launched: {counts}")
+        elif counts["decode_fused"] < 1 or (counts["stream_demod"] and not frames):
+            fail(f"phase 25 {label}: {len(frames)} chunk frames decoded, launches {counts}")
+        return out, counts, len(frames)
 
     cases = []  # (label, mode name, host signal, the JAX test's assertion)
     manifest = json.loads((GOLDEN / "manifest.json").read_text())
@@ -1360,12 +1452,19 @@ def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
     decoy = (0.4 * np.sin(2 * np.pi * 4 * t / p.fft_size)).astype(np.float32)  # inactive bin 4: lag-periodic
     composite = np.concatenate([decoy, np.zeros(2 * p.fft_size, np.float32), legacy(data_d, "QPSK", "d.bin")])
     cases.append(("decoy resume", "QPSK", composite, exact(data_d, "d.bin")))
+    for name, total, tail in CUT_PREAMBLES:
+        cases.append((f"preamble cut off {name}", name, cut_preamble(name, total, tail),
+                      lambda r: isinstance(r, framing.FrameError) and r.error == "Signal too short for CE"))
+    noise = (np.random.default_rng(5).standard_normal(40000) * 0.05).astype(np.float32)
+    for label, sig in (("silence", np.zeros(40000, np.float32)), ("noise", noise)):
+        cases.append((label, "QPSK", sig,
+                      lambda r: isinstance(r, framing.FrameError) and r.error.startswith("Preamble not detected")))
 
     total_counts: Counter = Counter()
     parts, worst_fine = [], 0.0
     for label, name, sig, check in cases:
         ref, rinfo = api.decode(sig, name, device="cpu")
-        (out, info), counts = on_card(lambda: api.decode(sig, name, device=dev), label)
+        (out, info), counts, n_frames = on_card(lambda: api.decode(sig, name, device=dev), label)
         total_counts.update(counts)
         if type(out).__name__ != type(ref).__name__ or dataclasses.asdict(out) != dataclasses.asdict(ref):
             fail(f"phase 25 {label}: the card gave {describe(out)}, the CPU {describe(ref)}")
@@ -1379,10 +1478,12 @@ def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
         if not check(out):
             fail(f"phase 25 {label}: {describe(out)}")
         parts.append(f"{label} ({len(sig)} samples, {name}): {describe(out)}"
-                     + (f" at {info.preamble_idx}" if info is not None else "") + f", stream_demod x{counts['stream_demod']}")
+                     + (f" at {info.preamble_idx}" if info is not None else "")
+                     + f", decode_fused x{counts['decode_fused']}, stream_demod x{counts['stream_demod']}"
+                     + (f" ({n_frames} chunk frame{'s' * (n_frames > 1)})" if n_frames else ""))
 
     # the decoy resume without the xcorr fallback: decode_raw alone, payload bytes equal
-    (raw, info), counts = on_card(lambda: decoder.decode_raw(composite, qpsk, device=dev), "decoy raw")
+    (raw, info), counts, _ = on_card(lambda: decoder.decode_raw(composite, qpsk, device=dev), "decoy raw")
     total_counts.update(counts)
     rraw, rinfo = decoder.decode_raw(composite, qpsk, device="cpu")
     payload = framing.build_legacy_payload(data_d, "d.bin")
@@ -1391,14 +1492,17 @@ def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
             and abs(info.fine_metric - rinfo.fine_metric) <= 1e-5):
         fail(f"phase 25 decoy: decode_raw gave {type(raw).__name__} at {getattr(info, 'preamble_idx', None)} on the "
              f"card, {type(rraw).__name__} at {getattr(rinfo, 'preamble_idx', None)} on the CPU")
-    parts.append(f"decoy decode_raw: payload exact past the decoy at {info.preamble_idx}")
+    if counts["decode_fused"] < 2 or counts["stream_demod"]:
+        fail(f"phase 25 decoy: decode_raw resumed the scan with launches {counts}")
+    parts.append(f"decoy decode_raw: payload exact past the decoy at {info.preamble_idx}, decode_fused "
+                 f"x{counts['decode_fused']} (the resume loop's tries)")
 
     for name in ("16-QAM", "BPSK-REPEAT", "64-QAM"):  # two chunks: metadata + 2 data frames
         mode = MODES[name]
         data = np.random.default_rng(7).bytes(mode.chunk_size + 63)
         sig = np.concatenate(chunked_frames(data, name, "m.bin", dev))
         ref = api.decode_chunked(sig, name, device="cpu")
-        out, counts = on_card(lambda: api.decode_chunked(sig, name, device=dev), f"chunked {name}")
+        out, counts, _ = on_card(lambda: api.decode_chunked(sig, name, device=dev), f"chunked {name}", chunked=True)
         total_counts.update(counts)
         if not isinstance(out, api.ChunkedDecodeResult) or dataclasses.asdict(out) != dataclasses.asdict(ref):
             fail(f"phase 25 chunked {name}: the card gave {out}, the CPU {ref}")
@@ -1407,23 +1511,19 @@ def contract_phase(dev, store: dict) -> tuple[Counter, str, dict]:
         parts.append(f"chunked {name} ({len(sig)} samples): {len(data)} exact bytes in {out.total_chunks} chunks, "
                      f"stream_demod x{counts['stream_demod']}")
 
-    kept = {k[1] for k in store if k[0] == "stream_demod"}
-    unkept = [c[0] for c in cases if c[0] not in kept]
-    if unkept:
-        fail(f"phase 25: no streaming-demod input kept for {unkept}")
+    kept = {k[1] for k in store if k[0] == "decode_fused"}
+    unkept = [label for label in [c[0] for c in cases] + ["decoy raw"] if f"{label} decoder" not in kept]
+    if unkept or "decoy raw decoder resume" not in kept:
+        fail(f"phase 25: no input of kernel A kept for {unkept}, resume kept: {'decoy raw decoder resume' in kept}")
 
-    walls = {}
-    for label, name, sig in (("config 1", "BPSK-NARROW", sig1), ("config 4 at 28 dB", "16-QAM", sig4[28.0])):
-        api.decode(sig, name, device=dev)
-        runs = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            api.decode(sig, name, device=dev)
-            runs.append((time.perf_counter() - t0) * 1e3)
-        walls[label] = (len(sig), runs)
+    noisy = {c[0] for c in cases if c[0].startswith(("config 4", "preamble cut off", "noise"))}
+    clean = tuple(f"{label} decoder{resume}" for label in [c[0] for c in cases if c[0] not in noisy] + ["decoy raw"]
+                  for resume in ("", " resume"))
+    walls = {label: (len(sig), decode_walls(sig, name, dev))
+             for label, name, sig in (("config 1", "BPSK-NARROW", sig1), ("config 4 at 28 dB", "16-QAM", sig4[28.0]))}
     line = (f"{len(cases) + 4} decodes equal to the CPU's (largest fine_metric difference {worst_fine:.3e}, tol "
             f"1e-5); " + "; ".join(parts) + f"; launches {dict(total_counts)}")
-    return total_counts, line, walls
+    return total_counts, line, walls, clean
 
 
 class CliRun:
@@ -1508,8 +1608,9 @@ def cli_phase(store: dict, small: bytes, big: bytes, n_big_frames: int) -> tuple
     legacy QPSK frame), encode -> receive of ``big`` (chunked, ``n_big_frames``
     frames), play --no-pace of ``big`` into a pipe with listen on the other
     end in f32 and in s16, testsignal -> diagnose, diagnose --live through a
-    channel, sweep and info. Files must come back exact and ``stream_demod``
-    launch at least once per frame decoded. Returns (launches, a report line)."""
+    channel, sweep and info. Files must come back exact, ``decode_fused``
+    launch for decode (the decoder's device core) and ``stream_demod`` at
+    least once per frame received. Returns (launches, a report line)."""
     import re
 
     from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1518,12 +1619,12 @@ def cli_phase(store: dict, small: bytes, big: bytes, n_big_frames: int) -> tuple
     total = Counter()
     parts = []
 
-    def counted(label: str, least: int, call, *args) -> tuple[str, float]:
+    def counted(label: str, least: int, call, *args, kernel: str = "stream_demod") -> tuple[str, float]:
         reset_launch_counts()
         text, wall = call(*args)
         counts = launch_counts()
-        if counts["stream_demod"] < least:
-            fail(f"cli {label}: stream_demod launched {counts['stream_demod']} times, fewer than {least}")
+        if counts[kernel] < least:
+            fail(f"cli {label}: {kernel} launched {counts[kernel]} times, fewer than {least}")
         total.update(counts)
         return text, wall
 
@@ -1537,7 +1638,8 @@ def cli_phase(store: dict, small: bytes, big: bytes, n_big_frames: int) -> tuple
                 fail(f"cli {label}: {name} differs from what was sent")
 
         _, t_enc_s = counted("encode", 0, run, "encode", str(d / "small.bin"), str(d / "s.wav"))
-        _, t_dec = counted("decode", 1, run, "decode", str(d / "s.wav"), "-o", str(d / "s.out"))
+        _, t_dec = counted("decode", 1, run, "decode", str(d / "s.wav"), "-o", str(d / "s.out"),
+                           kernel="decode_fused")
         exact("s.out", small, "decode")
         _, t_enc_b = counted("encode", 0, run, "encode", str(d / "big.bin"), str(d / "b.wav"))
         text, t_rx = counted("receive", n_big_frames, run, "receive", str(d / "b.wav"), "-o", str(d / "b.out"))
@@ -1581,7 +1683,8 @@ def arq_phase(dev, store: dict, big: bytes, n_streams: int = N_STREAMS, n_chunks
     counts from zero before each session. ``arq.run_arq_session`` of ``big``
     with every 20th data-chunk frame zeroed in round 1: complete and exact in
     two or more rounds, the first request naming exactly the dropped chunks
-    and round 2 resending only them. ``arq.run_batch_arq_session`` of
+    and round 2 resending only them, kernel A launched by every request
+    decode. ``arq.run_batch_arq_session`` of
     ``n_streams`` seeded files of ``n_chunks`` chunks (config 5's widths)
     with one chunk frame killed on every even stream in round 1: every
     stream exact, even streams resend one chunk, kernel B launched. Then
@@ -1644,6 +1747,8 @@ def arq_phase(dev, store: dict, big: bytes, n_streams: int = N_STREAMS, n_chunks
              f"dropped {dropped[:8]}...")
     if counts["stream_demod"] < n_total + 1:
         fail(f"arq session: stream_demod launched {counts['stream_demod']} times for {n_total + 1} frames")
+    if counts["decode_fused"] < len(requests):
+        fail(f"arq session: decode_fused launched {counts['decode_fused']} times for {len(requests)} requests")
     parts.append(f"run_arq_session {len(big)} bytes, {len(dropped)} of {n_total} chunk frames zeroed in round 1: "
                  f"exact in {rep.rounds} rounds, chunks sent {rep.chunks_sent_per_round}, first request = the "
                  f"dropped chunks, wall {t_end - t0:.3f} s (rounds {round_walls([t0] + stamps[1:], t_end)}), "
@@ -2126,19 +2231,35 @@ def main() -> None:
     sig3 = api.encode(data3, "QPSK", "q.bin", device=dev)[0]
     if sig3.shape[0] != 392_418:
         fail(f"QPSK legacy TX: {sig3.shape[0]} samples")
-    stream_launches = 0
+    decode_inputs: dict = {}
+    decode_launches = Counter()  # kernel A's launches on the decode path (phase 9)
+    real_core = decoder._core_dispatch
     for label, sig, m, want in (("config 2", noisy2, mode2, data2), ("QPSK legacy", sig3, MODES["QPSK"], data3)):
-        reset_launch_counts()
-        res, info = api.decode(sig, m, device=dev)
-        torch.cuda.synchronize()
-        counts9 = launch_counts()
+        cores = []
+
+        def core(*args, **kw):
+            cores.append(1)
+            return real_core(*args, **kw)
+
+        decoder._core_dispatch = core
+        try:
+            with path_inputs(decode_inputs, label):
+                reset_launch_counts()
+                res, info = api.decode(sig, m, device=dev)
+                torch.cuda.synchronize()
+                counts9 = launch_counts()
+        finally:
+            decoder._core_dispatch = real_core
         if not (isinstance(res, framing.LegacyFrame) and res.crc_valid and res.data == want):
             fail(f"{label}: api.decode gave {getattr(res, 'error', type(res).__name__)}")
-        if counts9["stream_demod"] < 1:
-            fail(f"{label}: the decode never launched stream_demod: {counts9}")
-        stream_launches += counts9["stream_demod"]
+        if counts9["decode_fused"] != len(cores) or counts9["stream_demod"]:
+            fail(f"{label}: {len(cores)} core calls of the decoder, launches {counts9}")
+        decode_launches.update(counts9)
         print(f"phase 9 api.decode {label}: {sig.shape[0]} samples -> {len(res.data)} exact bytes, CRC valid, "
-              f"preamble {info.preamble_idx}; launches {counts9}", flush=True)
+              f"preamble {info.preamble_idx}; {len(cores)} core call(s), launches {counts9}", flush=True)
+    err9, checked = check_path_inputs("phase 9", decode_inputs, clean=("QPSK legacy decoder",))
+    print(f"phase 9 kernel A against its plain version on the decoder's inputs: {checked}", flush=True)
+    del decode_inputs
     n2 = noisy2.shape[0]
     padded2 = decoder._padded(noisy2)
     ms2 = decoder._max_symbols(padded2.shape[0], mode2)
@@ -2187,11 +2308,7 @@ def main() -> None:
     run_cs = lambda: receive.decode_chunks_fused_stream(fr_n, m_n, ns_n)  # noqa: E731
     run_cb = lambda: receive.decode_chunks_fused(fr_n, m_n, ns_n)  # noqa: E731
     tb1, tcs1, tcs2, tb2 = time_ms(run_cb), time_ms(run_cs), time_ms(run_cs), time_ms(run_cb)
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        api.decode(noisy2, mode2, device=dev)
-        walls.append((time.perf_counter() - t0) * 1e3)
+    walls10 = decode_walls(noisy2, mode2, dev)
     print(f"phase 10 times {card}: stream_demod on config 2 ({ms2} symbols) {ms_s:.3f} ms ({ks1:.3f}, "
           f"{ks2:.3f}) vs plain {plain_ms_s:.3f} ms ({ps1:.3f}, {ps2:.3f}); B = 1 decode_long_fused "
           f"{statistics.median([tl1, tl2]):.3f} ms ({tl1:.3f}, {tl2:.3f}) vs kernel A "
@@ -2199,8 +2316,8 @@ def main() -> None:
           f"roofline share {bound_a1[0] / ms_a1:.1%}; stream_demod's bound {bound_s[0]:.4f} ms "
           f"({bound_s[1]}), roofline share {bound_s[0] / ms_s:.1%}; 64 narrowband frames "
           f"decode_chunks_fused_stream {statistics.median([tcs1, tcs2]):.3f} ms ({tcs1:.3f}, {tcs2:.3f}) vs "
-          f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); api.decode of config 2 "
-          f"wall {statistics.median(walls):.1f} ms (runs {', '.join(f'{w:.1f}' for w in walls)})", flush=True)
+          f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); host wall of api.decode of a "
+          f"signal on the card, median of 10 a route, {walls_line('config 2', n2, walls10)}", flush=True)
 
     # 11. digests of the kernels' bits
     digests = {name: hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -2217,7 +2334,7 @@ def main() -> None:
     data12 = np.random.default_rng(SEED + 12).bytes(1 << 20)
     frames12 = chunked_frames(data12, "QPSK", "config3.bin", dev)
     chunked_launches, line = chunked_receive("chunked QPSK", data12, "QPSK", np.concatenate(frames12), dev, runs=2)
-    stream_launches += chunked_launches
+    stream_launches = chunked_launches
     print(f"phase 12 chunked receive QPSK {card}: {line}", flush=True)
     # stream_demod as that path calls it: one frame, B = 1, the symbol bucket of a 2048-byte chunk
     m12 = MODES["QPSK"]
@@ -2284,9 +2401,11 @@ def main() -> None:
     launches20, line = arq_phase(dev, app_inputs, data12)
     print(f"phase 20 arq and loopback curve {card}: {line}", flush=True)
     tags = {k[:2] for k in app_inputs}
-    if not {("stream_demod", "cli"), ("stream_demod", "arq"), ("decode_chunks_fused", "batch arq")} <= tags:
+    if not {("stream_demod", "cli"), ("stream_demod", "arq"), ("decode_chunks_fused", "batch arq"),
+            ("decode_fused", "cli decoder"), ("decode_fused", "arq decoder")} <= tags:
         fail(f"phases 19-20: kernel inputs recorded only at {sorted(k[:3] for k in app_inputs)}")
-    _, checked = check_path_inputs("phases 19-20", app_inputs)
+    err20, checked = check_path_inputs("phases 19-20", app_inputs,
+                                       clean=("cli decoder", "arq decoder", "batch arq decoder"))
     print(f"phase 20 kernels against their plain versions on the inputs of phases 19-20: {checked}", flush=True)
 
     # 21. the receiver sharded over a mesh; 22. entry points and the cluster; 23. soak and demo
@@ -2316,16 +2435,16 @@ def main() -> None:
     # 25. the JAX package's test contract on the card
     t25 = time.perf_counter()
     contract_inputs: dict = {}
-    launches25, line, walls25 = contract_phase(dev, contract_inputs)
+    launches25, line, walls25, clean25 = contract_phase(dev, contract_inputs)
     print(f"phase 25 contract {card}: {line}", flush=True)
     stream_errs25: list = []
-    _, checked = check_path_inputs("phase 25", contract_inputs, stream_errs=stream_errs25)
-    print(f"phase 25 streaming demod against its plain version on the inputs of phase 25: {checked}", flush=True)
+    err25, checked = check_path_inputs("phase 25", contract_inputs, clean=clean25, stream_errs=stream_errs25)
+    print(f"phase 25 kernel A and the streaming demod against their plain versions on the inputs of phase 25: "
+          f"{checked}", flush=True)
     del contract_inputs
-    print(f"phase 25 walls {card}: phase {time.perf_counter() - t25:.2f} s; host wall of api.decode, median of 10 "
-          f"after a warm call: " + "; ".join(
-              f"{label} ({n} samples) {statistics.median(runs):.3f} ms (runs {', '.join(f'{w:.3f}' for w in runs)})"
-              for label, (n, runs) in walls25.items()), flush=True)
+    print(f"phase 25 walls {card}: phase {time.perf_counter() - t25:.2f} s; host wall of api.decode of host audio, "
+          f"median of 10 a route: " + "; ".join(walls_line(label, n, w) for label, (n, w) in walls25.items()),
+          flush=True)
 
     # 26. kernel C on edge inputs at full width
     err26, line = predicted_edges(dev, mode, windows, n_sym, cadence)
@@ -2338,8 +2457,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:375",
-         "launches": counts["decode_fused"] + ring_launches["decode_fused"] + batch_launches["decode_fused"],
-         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err17, err18, err21, err22, err23, err24),
+         "launches": counts["decode_fused"] + decode_launches["decode_fused"] + ring_launches["decode_fused"]
+         + batch_launches["decode_fused"],
+         "max_abs_err": max(err_fine, err_ch, err_fine_1, err_ch_1, err9, err17, err18, err20, err21, err22, err23,
+                            err24, err25),
          "ms": ms_a, "plain_ms": plain_ms_a,
          "bound_ms": bound_a[0], "bound_by": bound_a[1], "library_ms": None},
         {"name": "decode_predicted", "route": "cuda", "source": source,

@@ -419,7 +419,20 @@ def _awgn(x: np.ndarray, snr_db: float, seed: int) -> np.ndarray:
 
 
 def _decode_case(case: str):
-    """(signal, mode, keywords, payload) for one rung of the decoder's ladder."""
+    """(signal, mode, keywords, payload) for one rung of the decoder's ladder,
+    or for an input that decodes to an error (payload None): a preamble cut
+    off at the end of a signal that fills its padded bucket ("cut" at the
+    standard profile, "cut-narrow" at the narrowband one, as in
+    test_torch_decoder.py), and silence."""
+    if case.startswith("short "):  # one short frame in each mode
+        mode = MODES[case[len("short "):]]
+        payload = np.random.default_rng(13).bytes(64)
+        return _awgn(framing.build_transmit_signal(payload, mode, "s.bin", device="cpu").numpy(), 25.0, 5), mode, {}, payload
+    if case.startswith("cut"):
+        name, total, tail = chip_smoke.CUT_PREAMBLES[case == "cut-narrow"]
+        return chip_smoke.cut_preamble(name, total, tail), MODES[name], {}, None
+    if case == "silence":
+        return np.zeros(40000, np.float32), MODES["QPSK"], {}, None
     if case == "clean":
         mode = MODES["QPSK"]
         payload = np.random.default_rng(12).bytes(2000)
@@ -457,20 +470,32 @@ def _decode_case(case: str):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["clean", "soft", "xcorr", "fec", "tracked", "config4-28", "config4-22"])
+@pytest.mark.parametrize("case", ["clean", "soft", "xcorr", "fec", "tracked", "config4-28", "config4-22", "cut",
+                                  "cut-narrow", "silence"] + [f"short {name}" for name in MODES])
 def test_api_decode_on_card_matches_cpu(cuda_device, case):
-    """Every rung of the decoder's retry ladder on the card gives what the
-    plain path gives on the CPU, through the streaming-demod kernel."""
+    """Every rung of the decoder's retry ladder, the error cases and a short
+    frame in each mode on the card give what the plain path gives on the
+    CPU, through kernel A at B = 1."""
     sig, mode, kw, payload = _decode_case(case)
     ref, rinfo = api.decode(sig, mode, device="cpu", **kw)
     reset_launch_counts()
     out, info = api.decode(torch.from_numpy(sig.copy()).to(cuda_device), mode, device=cuda_device, **kw)
-    assert launch_counts()["stream_demod"] >= 1
+    assert launch_counts()["decode_fused"] >= 1
     assert type(out).__name__ == type(ref).__name__
     assert dataclasses.asdict(out) == dataclasses.asdict(ref)
-    assert out.crc_valid and out.data == payload
-    assert (info.preamble_idx, info.coarse_idx) == (rinfo.preamble_idx, rinfo.coarse_idx)
-    assert abs(info.fine_metric - rinfo.fine_metric) < 1e-5
+    if payload is None:
+        assert isinstance(out, framing.FrameError)
+    else:
+        assert out.crc_valid and out.data == payload
+    assert (info is None) == (rinfo is None)
+    if info is not None:
+        assert (info.preamble_idx, info.coarse_idx) == (rinfo.preamble_idx, rinfo.coarse_idx)
+        assert abs(info.fine_metric - rinfo.fine_metric) < 1e-5
+    if case == "silence":
+        assert out.error == "Preamble not detected" and info is None
+    if case.startswith("cut"):
+        _, total, tail = chip_smoke.CUT_PREAMBLES[case == "cut-narrow"]
+        assert out.error == "Signal too short for CE" and info.preamble_idx == total - tail
 
 
 @pytest.mark.cuda
@@ -693,7 +718,7 @@ def test_process_blocks_takes_a_card_tensor_without_a_host_copy(cuda_device, mon
 def test_cli_decode_and_listen_on_card(cuda_device, tmp_path, monkeypatch):
     """The CLI on the card (its default compute device): encode -> decode of
     a legacy frame, and play -> listen of a chunked PCM file in f32 and s16;
-    exact bytes, and the streaming demod launched by each decode."""
+    exact bytes; kernel A launched by decode, the streaming demod by listen."""
     from audio_modem_tpu_torch import cli
 
     rng = np.random.default_rng(21)
@@ -704,7 +729,7 @@ def test_cli_decode_and_listen_on_card(cuda_device, tmp_path, monkeypatch):
     assert cli.main(["encode", "small.bin", "s.wav"]) == 0
     reset_launch_counts()
     assert cli.main(["decode", "s.wav", "-o", "out.bin"]) == 0
-    assert (tmp_path / "out.bin").read_bytes() == small and launch_counts()["stream_demod"] >= 1
+    assert (tmp_path / "out.bin").read_bytes() == small and launch_counts()["decode_fused"] >= 1
     for pcm in ("f32", "s16"):
         assert cli.main(["play", "big.bin", f"{pcm}.pcm", "--no-pace", "--pcm", pcm]) == 0
         reset_launch_counts()
@@ -770,14 +795,15 @@ def two_cards():
 def test_kernels_on_a_card_that_is_not_current(two_cards, name):
     """Kernels A, B and C and the streaming demod on tensors of cuda:1 while
     cuda:0 is current: each launches on its tensors' card (with that card's
-    shared-memory attribute) and equals its plain version there; tensors of
-    two cards are refused."""
+    shared-memory attribute) and equals its plain version there, and so does
+    api.decode of a short frame; tensors of two cards are refused."""
     current, other = two_cards
     with torch.cuda.device(current):
         test_kernel_a_matches_plain(other, name)
         test_kernel_b_matches_plain(other, name)
         test_stream_demod_matches_plain(other, name, 65, 9)
         test_kernel_c_matches_plain(other, name, 48, 4, 3, "scanned", "plain")
+        test_api_decode_on_card_matches_cpu(other, f"short {name}")
         assert torch.cuda.current_device() == current.index
         x = torch.zeros(2, 4096, device=other)
         with pytest.raises(ValueError, match="one card"):

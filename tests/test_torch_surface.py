@@ -35,8 +35,8 @@ FP32 = ("XLA's HIGHEST matmul precision; the port computes in float32 with TF32 
 
 NOT_PORTED = {
     "decoder:_decode_core": (
-        "the XLA single-signal pipeline; the decoder calls "
-        f"`{KR}::decode_long_fused`, whose CPU path is that pipeline (`{KR}::decode_fused_reference`)"),
+        "the XLA single-signal pipeline; the decoder calls kernel A at B = 1, "
+        f"`{KR}::decode_fused`, whose CPU path is that pipeline (`{KR}::decode_fused_reference`)"),
     "framing:_synth_frame": (
         "one-frame synthesis; the port synthesizes one frame as a batch of one "
         "(`audio_modem_tpu_torch/framing.py::synthesize_frame` over `audio_modem_tpu_torch/framing.py::_synth_frames_core`)"),
