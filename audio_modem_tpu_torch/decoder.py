@@ -13,6 +13,15 @@ CPU. A numpy signal is copied there; a tensor must already lie there.
 Nothing moves to the CPU on its own, and nothing falls back to it: without a
 CUDA device a call that does not pass ``device="cpu"`` raises, and on CUDA
 the device core runs kernel A (``decode_fused``) or raises.
+
+While the span recorder is on (``utils.trace``), and over every
+``decode_signal`` made while torch.profiler records, a decode records a
+``decode`` span with ``decode.*`` spans inside it: the upload, the bucket
+pad, each try of kernel A and its launch, each blocking read back to the
+host (``decode.sync``, through ``_read``), the vote and pack, the parse and
+each rung of the retry ladder; and the counters ``tries``, ``host_syncs``
+and ``rungs``. With the recorder off every span is one shared no-op, and
+the root's and the reads' attributes are not computed.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from audio_modem_tpu_torch.kernels import resolve_device
 from audio_modem_tpu_torch.kernels.receive import decode_fused, stream_demod
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+from audio_modem_tpu_torch.utils import trace
 
 PAD_BUCKET = 16384
 SYM_BUCKET = 16
@@ -65,19 +75,43 @@ def _max_symbols(pad_len: int, mode: ModemMode) -> int:
 def _on_device(signal: "np.ndarray | torch.Tensor", device) -> torch.Tensor:
     """1-D float32 signal on ``device``; a tensor elsewhere raises."""
     dev = resolve_device(device)
-    if isinstance(signal, torch.Tensor):
-        if signal.device.type != dev.type or (dev.index is not None and signal.device.index != dev.index):
-            raise ValueError(f"signal lies on {signal.device}, decode asked for {dev}")
-        return signal.to(torch.float32).reshape(-1)
-    return torch.from_numpy(np.array(signal, np.float32).reshape(-1)).to(dev)
+    with trace.span("decode.upload"):
+        if isinstance(signal, torch.Tensor):
+            if signal.device.type != dev.type or (dev.index is not None and signal.device.index != dev.index):
+                raise ValueError(f"signal lies on {signal.device}, decode asked for {dev}")
+            return signal.to(torch.float32).reshape(-1)
+        return torch.from_numpy(np.array(signal, np.float32).reshape(-1)).to(dev)
 
 
 def _padded(sig: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.pad(sig, (0, _bucket_len(sig.shape[0]) - sig.shape[0]))
+    with trace.span("decode.pad"):
+        return torch.nn.functional.pad(sig, (0, _bucket_len(sig.shape[0]) - sig.shape[0]))
+
+
+def _read(what: str, t: torch.Tensor, cast=None):
+    """``cast(t)`` (``int`` or ``float``), or ``t`` as a numpy array where
+    ``cast`` is None: every blocking read of a device value on the decode
+    path, in a ``decode.sync`` span while the recorder is on."""
+    if not trace.enabled():
+        return t.cpu().numpy() if cast is None else cast(t)
+    trace.count("host_syncs")
+    with trace.span("decode.sync", what=what):
+        return t.cpu().numpy() if cast is None else cast(t)
 
 
 def _to_bytes(bits: torch.Tensor) -> bytes:
-    return bits_to_bytes(bits).cpu().numpy().tobytes()
+    return _read("bits", bits_to_bytes(bits)).tobytes()
+
+
+def _parse(raw: bytes, min_len: int, erasures: np.ndarray | None = None) -> ParseResult:
+    with trace.span("decode.parse"):
+        return parse_payload_bytes(raw, min_len=min_len, erasures=erasures)
+
+
+def _rung(name: str):
+    """One rung of the retry ladder entered."""
+    trace.count("rungs")
+    return trace.span(f"decode.rung.{name}")
 
 
 def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: ModemMode, max_syms: int):
@@ -89,11 +123,12 @@ def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: Modem
     scan and symbol tiles. On the CPU the same call runs kernel A's plain
     version, which is the JAX package's XLA formulation (its
     ``_decode_core``)."""
-    dev = signal.device
-    nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
-    mp = torch.tensor([min_pos], dtype=torch.int32, device=dev)
-    out = decode_fused(signal[None], nv, mp, mode, max_syms)
-    return tuple(out[k][0] for k in _CORE_KEYS)
+    with trace.span("decode.kernel_a"):
+        dev = signal.device
+        nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        mp = torch.tensor([min_pos], dtype=torch.int32, device=dev)
+        out = decode_fused(signal[None], nv, mp, mode, max_syms)
+        return tuple(out[k][0] for k in _CORE_KEYS)
 
 
 def _aligned(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int):
@@ -216,17 +251,19 @@ def decode_raw(
 
     min_pos, coarse, start, fine_metric = 0, -1, -1, -np.inf
     bits = ch_re = ch_im = None
-    for _ in range(4):
-        coarse_t, start_t, metric_t, bits, ch_re, ch_im = _core_dispatch(sig_dev, n_valid, min_pos, mode, max_syms)
-        coarse = int(coarse_t)
-        if coarse < 0:
-            if fine_metric == -np.inf:
-                return FrameError("Preamble not detected"), None
-            break
-        start, fine_metric = int(start_t), float(metric_t)
-        if fine_metric >= sync.XCORR_THRESHOLD:
-            break
-        min_pos = coarse + p.fft_size  # skip past the false peak
+    for i in range(4):
+        trace.count("tries")
+        with trace.span("decode.try", index=i):
+            coarse_t, start_t, metric_t, bits, ch_re, ch_im = _core_dispatch(sig_dev, n_valid, min_pos, mode, max_syms)
+            coarse = _read("coarse", coarse_t, int)
+            if coarse < 0:
+                if fine_metric == -np.inf:
+                    return FrameError("Preamble not detected"), None
+                break
+            start, fine_metric = _read("start", start_t, int), _read("metric", metric_t, float)
+            if fine_metric >= sync.XCORR_THRESHOLD:
+                break
+            min_pos = coarse + p.fft_size  # skip past the false peak
     if coarse < 0 or fine_metric < sync.XCORR_THRESHOLD:
         return FrameError("Preamble not detected (low correlation)"), None
 
@@ -234,7 +271,7 @@ def decode_raw(
         preamble_idx=start,
         coarse_idx=coarse,
         fine_metric=fine_metric,
-        channel_mag=phy.channel_magnitude(ch_re, ch_im).cpu().numpy(),
+        channel_mag=_read("channel", phy.channel_magnitude(ch_re, ch_im)),
     )
     ce_start = start + 2 * sym
     if ce_start + sym > n_valid:
@@ -248,9 +285,10 @@ def decode_raw(
         b, _tau = _tracked_core(sig_dev, n_valid, start, mode, n_sym)
     else:
         b = bits[: n_sym * bits_per_symbol(mode)]
-    if mode.repetition > 1:
-        b = majority_vote(b, mode.repetition)
-    return _to_bytes(b), info
+    with trace.span("decode.vote_pack"):
+        if mode.repetition > 1:
+            b = majority_vote(b, mode.repetition)
+        return _to_bytes(b), info
 
 
 def decode_signal(
@@ -265,22 +303,27 @@ def decode_signal(
     dense xcorr detector (the reference's loopback fallback,
     modem.js:980-984) and decoded as a chunk frame aligned there, with the
     chunk decoder's retry ladder behind it."""
-    sig = _on_device(signal, device)
-    result, info = _decode_signal_once(sig, mode, track_timing)
-    if not _parse_failed(result):
+    with trace.follow_profiler(), trace.span("decode") as root:
+        sig = _on_device(signal, device)
+        if trace.enabled():
+            feed = "card" if isinstance(signal, torch.Tensor) and signal.device.type == "cuda" else "host"
+            root.set(mode=mode.name, feed=feed, samples=sig.shape[0])
+        result, info = _decode_signal_once(sig, mode, track_timing)
+        if not _parse_failed(result):
+            return result, info
+        with _rung("xcorr"):
+            n_valid = sig.shape[0]
+            xi, xm = _xcorr_core(_padded(sig), n_valid, mode)
+            xstart, xmetric = _read("xcorr", xi, int), _read("xcorr_metric", xm, float)
+            if (
+                xmetric >= sync.XCORR_THRESHOLD
+                and xstart >= 0
+                and (info is None or abs(xstart - info.preamble_idx) > mode.profile.symbol_len // 2)
+            ):
+                retry = decode_chunk_frame(sig[xstart:], mode, device=sig.device)
+                if not _parse_failed(retry):
+                    return retry, DecodeInfo(preamble_idx=xstart, coarse_idx=-1, fine_metric=xmetric)
         return result, info
-    n_valid = sig.shape[0]
-    xi, xm = _xcorr_core(_padded(sig), n_valid, mode)
-    xstart, xmetric = int(xi), float(xm)
-    if (
-        xmetric >= sync.XCORR_THRESHOLD
-        and xstart >= 0
-        and (info is None or abs(xstart - info.preamble_idx) > mode.profile.symbol_len // 2)
-    ):
-        retry = decode_chunk_frame(sig[xstart:], mode, device=sig.device)
-        if not _parse_failed(retry):
-            return retry, DecodeInfo(preamble_idx=xstart, coarse_idx=-1, fine_metric=xmetric)
-    return result, info
 
 
 def _decode_signal_once(
@@ -289,29 +332,31 @@ def _decode_signal_once(
     raw, info = decode_raw(sig, mode, track_timing=track_timing, device=sig.device)
     if isinstance(raw, FrameError):
         return raw, info
-    result = parse_payload_bytes(raw, min_len=10)
+    result = _parse(raw, min_len=10)
     sym = mode.profile.symbol_len
     n_valid = sig.shape[0]
     n_sym = (n_valid - (info.preamble_idx + 3 * sym)) // sym
     if _parse_failed(result) and _soft_retry_applicable(mode) and n_sym > 0:
-        # soft repetition combining: summing each copy's BPSK metric before
-        # the sign decision keeps the confidence a hard vote throws away
-        soft = _soft_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym)
-        soft_raw = _to_bytes(soft_combine(soft, mode.repetition))
-        soft_result = parse_payload_bytes(soft_raw, min_len=10)
-        if not _parse_failed(soft_result):
-            return soft_result, info
-        if _is_fec_failure(soft_raw, soft_result):
-            raw, result = soft_raw, soft_result  # give FEC the better bits
+        with _rung("soft"):
+            # soft repetition combining: summing each copy's BPSK metric before
+            # the sign decision keeps the confidence a hard vote throws away
+            soft = _soft_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym)
+            soft_raw = _to_bytes(soft_combine(soft, mode.repetition))
+            soft_result = _parse(soft_raw, min_len=10)
+            if not _parse_failed(soft_result):
+                return soft_result, info
+            if _is_fec_failure(soft_raw, soft_result):
+                raw, result = soft_raw, soft_result  # give FEC the better bits
     if _is_fec_failure(raw, result) and n_sym > 0:
-        # errors-and-erasures retry: flag burst-hit bytes from the per-symbol
-        # EVM and decode again with known positions (2e + f <= 32)
-        evm = _evm_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym).cpu().numpy()
-        flags = _byte_erasures(evm, mode, _fec_region_bytes(raw))
-        if flags is not None:
-            retry = parse_payload_bytes(raw, min_len=10, erasures=flags)
-            if not _parse_failed(retry):
-                return retry, info
+        with _rung("fec_erasures"):
+            # errors-and-erasures retry: flag burst-hit bytes from the per-symbol
+            # EVM and decode again with known positions (2e + f <= 32)
+            evm = _read("evm", _evm_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym))
+            flags = _byte_erasures(evm, mode, _fec_region_bytes(raw))
+            if flags is not None:
+                retry = _parse(raw, min_len=10, erasures=flags)
+                if not _parse_failed(retry):
+                    return retry, info
     return result, info
 
 
@@ -346,33 +391,37 @@ def decode_chunk_frame(frame: "np.ndarray | torch.Tensor", mode: ModemMode, devi
     bits = _chunk_core(frame_dev, mode, n_bucket)
     result = _bits_to_parse(bits, n_sym, mode, min_len=6)
     if _parse_failed(result) and _soft_retry_applicable(mode):
-        soft = _chunk_soft_core(frame_dev, mode, n_bucket)[: n_sym * bps_sym]
-        soft_raw = _to_bytes(soft_combine(soft, mode.repetition))
-        soft_result = parse_payload_bytes(soft_raw, min_len=6)
-        if not _parse_failed(soft_result):
-            return soft_result
+        with _rung("soft"):
+            soft = _chunk_soft_core(frame_dev, mode, n_bucket)[: n_sym * bps_sym]
+            soft_raw = _to_bytes(soft_combine(soft, mode.repetition))
+            soft_result = _parse(soft_raw, min_len=6)
+            if not _parse_failed(soft_result):
+                return soft_result
     if _parse_failed(result):
         b = bits[: n_sym * bps_sym]
-        if mode.repetition > 1:
-            b = majority_vote(b, mode.repetition)
-        raw_by = _to_bytes(b)
+        with trace.span("decode.vote_pack"):
+            if mode.repetition > 1:
+                b = majority_vote(b, mode.repetition)
+            raw_by = _to_bytes(b)
         if _is_fec_failure(raw_by, result):
-            evm = _chunk_evm_core(frame_dev, mode, n_bucket)[:n_sym].cpu().numpy()
-            flags = _byte_erasures(evm, mode, _fec_region_bytes(raw_by))
-            if flags is not None:
-                retry = _bits_to_parse(bits, n_sym, mode, min_len=6, erasures=flags)
-                if not _parse_failed(retry):
-                    return retry
+            with _rung("fec_erasures"):
+                evm = _read("evm", _chunk_evm_core(frame_dev, mode, n_bucket)[:n_sym])
+                flags = _byte_erasures(evm, mode, _fec_region_bytes(raw_by))
+                if flags is not None:
+                    retry = _bits_to_parse(bits, n_sym, mode, min_len=6, erasures=flags)
+                    if not _parse_failed(retry):
+                        return retry
         # timing-tracked retry for within-frame clock drift, last rung. The
         # payload's symbol count, read from the decoded header (drift barely
         # touches the first symbols), bounds the loop's measurement: a bucket
         # tail can reach the next frame's preamble.
-        wire = _wire_payload_len(raw_by)
-        nv = min(max(num_symbols_for_payload(wire, mode), 1), n_bucket) if wire is not None else n_sym
-        tbits = _chunk_tracked_core(frame_dev, mode, n_bucket, nv)
-        tresult = _bits_to_parse(tbits, n_sym, mode, min_len=6)
-        if not _parse_failed(tresult):
-            return tresult
+        with _rung("tracked"):
+            wire = _wire_payload_len(raw_by)
+            nv = min(max(num_symbols_for_payload(wire, mode), 1), n_bucket) if wire is not None else n_sym
+            tbits = _chunk_tracked_core(frame_dev, mode, n_bucket, nv)
+            tresult = _bits_to_parse(tbits, n_sym, mode, min_len=6)
+            if not _parse_failed(tresult):
+                return tresult
     return result
 
 
@@ -438,6 +487,8 @@ def _bits_to_parse(
 ) -> ParseResult:
     """Truncate to the valid symbol count, undo repetition, pack, parse."""
     bits = bits[: n_sym * bits_per_symbol(mode)]
-    if mode.repetition > 1:
-        bits = majority_vote(bits, mode.repetition)
-    return parse_payload_bytes(_to_bytes(bits), min_len=min_len, erasures=erasures)
+    with trace.span("decode.vote_pack"):
+        if mode.repetition > 1:
+            bits = majority_vote(bits, mode.repetition)
+        raw = _to_bytes(bits)
+    return _parse(raw, min_len=min_len, erasures=erasures)

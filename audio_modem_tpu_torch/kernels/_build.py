@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from audio_modem_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libamtpu_kernels.so"
@@ -125,17 +127,23 @@ def _build(lib_path: Path, stamp: Path, digest: str) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
+    """Build (if the sources changed) and load the kernel library, in a
+    ``setup.kernel_load`` span (``built``: whether nvcc ran, in a
+    ``setup.kernel_build`` span inside it)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        lib_path = BUILD_DIR / LIB_NAME
-        stamp = BUILD_DIR / "sources.sha256"
-        digest = _digest()
-        if not (lib_path.exists() and stamp.exists() and stamp.read_text() == digest):
-            _build(lib_path, stamp, digest)
-        lib = ctypes.CDLL(str(lib_path))
+        with trace.setup_span("setup.kernel_load") as sp:
+            lib_path = BUILD_DIR / LIB_NAME
+            stamp = BUILD_DIR / "sources.sha256"
+            digest = _digest()
+            built = not (lib_path.exists() and stamp.exists() and stamp.read_text() == digest)
+            sp.set(built=built)
+            if built:
+                with trace.setup_span("setup.kernel_build"):
+                    _build(lib_path, stamp, digest)
+            lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

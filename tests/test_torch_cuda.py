@@ -890,3 +890,38 @@ def test_stream_demod_on_the_benchs_32kb_qpsk_frames(cuda_device):
     kb = receive.decode_chunks_fused(frames, mode, n_sym)
     assert n_sym == 640 and ks.shape == (64, n_sym * bits_per_symbol(mode))
     assert torch.equal(ks.to(torch.int32), ps.to(torch.int32)) and torch.equal(ks.to(torch.int32), kb.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_traced_decode_lines_up_with_the_device_trace(cuda_device):
+    """The recorder's spans on torch.profiler's clock: a decode of a
+    recording on the card under a profile of the card alone records its
+    spans (the recorder follows the profiler), and kernel A's first device
+    event starts after its ``decode.kernel_a`` span starts and before the
+    first ``decode.sync`` span, the read that waits for it, ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_modem_tpu_torch.utils import trace
+
+    mode = MODES["QPSK"]
+    payload = np.random.default_rng(12).bytes(2000)
+    sig = framing.build_transmit_signal(payload, mode, "c.bin", device=cuda_device)
+    api.decode(sig, mode, device=cuda_device)  # builds and loads the kernels
+    trace.disable()
+    trace.drain()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pair = trace.clock_pair()
+        result, _ = api.decode(sig, mode, device=cuda_device)
+        torch.cuda.synchronize()
+    assert not trace.enabled()
+    spans, counters = trace.drain()
+    assert result.crc_valid and result.data == payload
+    assert counters["host_syncs"] == 5 and counters["tries"] == 1
+    mapped = trace.on_profile_clock(spans, pair, prof.profiler.kineto_results.trace_start_ns())
+    kernel_a = min(s.start_ns / 1e3 for s in mapped if s.name == "decode.kernel_a")
+    first_sync_end = min(s.end_ns / 1e3 for s in mapped if s.name == "decode.sync")
+    cuda = torch.autograd.DeviceType.CUDA
+    first_a = min(ev.time_range.start for ev in prof.events()
+                  if ev.device_type == cuda and "pre_stats_kernel" in ev.name)
+    assert kernel_a < first_a < first_sync_end, (kernel_a, first_a, first_sync_end)

@@ -3,6 +3,7 @@ ring buffer, logging, metrics, WAV I/O and StageTimer copies, the native
 bridge (its own library path), phy.add_cp, and the chunk assembler with its
 sqlite store, which either package must be able to resume from the other."""
 
+import json
 import logging
 import os
 import sqlite3
@@ -21,7 +22,7 @@ from audio_modem_tpu.runtime import assembler as jassembler
 from audio_modem_tpu.runtime.ring import RingBuffer as JRingBuffer
 from audio_modem_tpu.utils import log as jlog, metrics as jmetrics, wav as jwav
 from audio_modem_tpu.utils.trace import StageTimer as JStageTimer
-from audio_modem_tpu_torch import native, phy
+from audio_modem_tpu_torch import api, framing, native, phy
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.framing import DataFrame, MetaFrame
 from audio_modem_tpu_torch.runtime import assembler
@@ -146,9 +147,23 @@ def test_stage_timer_matches_original():
 
 
 def test_device_trace_writes_a_profile(tmp_path):
+    """The Chrome trace holds the program's spans, on the profile's clock,
+    beside the operations run inside them."""
+    mode = MODES["QPSK"]
+    sig = framing.build_transmit_signal(b"traced", mode, "t.bin", device="cpu").numpy()
     with trace.device_trace(str(tmp_path)):
         torch.ones(64).sum().item()
-    assert list(tmp_path.iterdir()), "torch.profiler wrote no trace"
+        api.decode(sig, mode, device="cpu")
+    assert not trace.enabled()
+    [path] = list(tmp_path.iterdir())
+    events = json.loads(path.read_text())["traceEvents"]
+    [decode] = [e for e in events if e.get("cat") == "program" and e["name"] == "decode"]
+    assert decode["args"]["decode"] == decode["args"]["id"] and decode["args"]["mode"] == "QPSK"
+    inside = [e for e in events if e.get("cat") == "program" and e["args"]["decode"] == decode["args"]["id"]]
+    assert {"decode.try", "decode.kernel_a", "decode.sync", "decode.parse"} <= {e["name"] for e in inside}
+    ops = [e for e in events if e.get("cat") == "cpu_op" and decode["ts"] <= e["ts"] <= decode["ts"] + decode["dur"]]
+    assert ops, "no operation of the decode lies inside its span on the profile's clock"
+    assert trace.drain() == ([], {})
 
 
 def test_add_cp_matches_jax():
