@@ -1,12 +1,14 @@
 // Receive kernels for Hopper (sm_90a): the full per-stream receive (kernel A),
 // the cadence-predicted slots of a turbo round (kernel C), the frame-aligned
-// chunk demod (kernel B) and the streaming demod of a data region whose
-// channel is already known, with a plain C interface for ctypes (see
-// kernels/_build.py). A is a pipeline of six launches gridded over (tiles or
-// symbol tiles, streams); C five (A's first two, a slot chain a stream, the
-// demod over (symbol tiles, slots, streams), the pack); B is two launches
-// (peak; CE and demod) gridded over (chunks or symbol tiles, frames); the
-// streaming demod one CTA per (symbol tile, stream).
+// chunk demod (kernel B), the streaming demod of a data region whose
+// channel is already known, and the one-shot decoder's tail after kernel A
+// (vote, byte pack and |H| into one row a stream), with a plain C interface
+// for ctypes (see kernels/_build.py). A is a pipeline of six launches gridded
+// over (tiles or symbol tiles, streams); C five (A's first two, a slot chain a
+// stream, the demod over (symbol tiles, slots, streams), the pack); B is two
+// launches (peak; CE and demod) gridded over (chunks or symbol tiles,
+// frames); the streaming demod one CTA per (symbol tile, stream); the tail
+// one launch over (byte tiles, streams).
 //
 // All four end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits). A, B and the streaming
@@ -1293,9 +1295,26 @@ predicted_demod_kernel(const float* __restrict__ signals, const int* __restrict_
 
 constexpr int kThreadsPack = 256;
 
-// 5. slot blockIdx.x of stream blockIdx.y into its packed row: head, then
-// byte j = the voted bits 8j .. 8j+7, MSB first (ops.bits.majority_vote:
+// Bytes j = j0, j0 + step, ... < n_bytes of the repetition-voted bits of src,
+// MSB first: byte j holds voted bits 8j .. 8j+7 (ops.bits.majority_vote:
 // group i is bits i*rep .. i*rep+rep-1, ties to 1; then bits_to_bytes).
+// Kernel C's pack and the one-shot decoder's tail both vote through it.
+__device__ void vote_pack(const signed char* __restrict__ src, int rep, int n_bytes, int j0, int step,
+                          unsigned char* __restrict__ out) {
+  for (int j = j0; j < n_bytes; j += step) {
+    unsigned v = 0;
+    for (int q = 0; q < 8; ++q) {
+      const signed char* g = src + (size_t)(8 * j + q) * rep;
+      int sum = 0;
+      for (int r = 0; r < rep; ++r) sum += g[r];
+      v = (v << 1) | (unsigned)(2 * sum >= rep);
+    }
+    out[j] = (unsigned char)v;
+  }
+}
+
+// 5. slot blockIdx.x of stream blockIdx.y into its packed row: head, then
+// the voted, packed bytes (vote_pack).
 // The first k_slots - n_pred slots (0 or 1) come from kernel A's outputs
 // (bits0, start0, ok0), the others from the chain and the demod.
 __global__ void __launch_bounds__(kThreadsPack)
@@ -1319,16 +1338,48 @@ predicted_pack_kernel(const signed char* __restrict__ bits, const int* __restric
   }
   unsigned char* row = packed + ((size_t)b * k_slots + slot) * (5 + n_bytes);
   if (threadIdx.x < 5) row[threadIdx.x] = threadIdx.x == 0 ? flag : (unsigned char)((st >> (32 - 8 * threadIdx.x)) & 0xFF);
-  for (int j = threadIdx.x; j < n_bytes; j += kThreadsPack) {
-    unsigned v = 0;
-    for (int q = 0; q < 8; ++q) {
-      const signed char* g = src + (size_t)(8 * j + q) * rep;
-      int sum = 0;
-      for (int r = 0; r < rep; ++r) sum += g[r];
-      v = (v << 1) | (unsigned)(2 * sum >= rep);
+  vote_pack(src, rep, n_bytes, threadIdx.x, kThreadsPack, row + 5);
+}
+
+// ---- the one-shot decoder's tail: one launch after kernel A ----
+//
+// Row b of ``rows`` [B, row_bytes] gathers what the host reads of kernel A's
+// row b in one copy: the head (coarse and start int32, the fine metric's
+// float32 bits), |H| float32 [n_active] (phy.channel_magnitude, each
+// operation rounded on its own as PyTorch's separate operations round it),
+// then the voted, packed bytes of the whole bits row (n_bits / rep / 8 of
+// them) and zeros up to row_bytes, a multiple of 4. Groups and bytes start at
+// bit 0, so the bytes of a frame's first n_sym symbols are a prefix of the
+// row's; the host keeps that prefix. Grid: (byte tiles, B).
+
+constexpr int kThreadsTail = 256;
+constexpr int kTailHead = 12;
+
+__global__ void __launch_bounds__(kThreadsTail)
+decode_tail_kernel(const int* __restrict__ coarse, const int* __restrict__ start, const float* __restrict__ fine,
+                   const signed char* __restrict__ bits, const float* __restrict__ ch_re,
+                   const float* __restrict__ ch_im, int n_bits, int n_active, int rep, int n_bytes, int row_bytes,
+                   unsigned char* __restrict__ rows) {
+  const int b = blockIdx.y;
+  unsigned char* row = rows + (size_t)b * row_bytes;
+  unsigned char* packed = row + kTailHead + 4 * n_active;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x == 0) {
+      int* head = reinterpret_cast<int*>(row);
+      head[0] = coarse[b];
+      head[1] = start[b];
+      head[2] = __float_as_int(fine[b]);
     }
-    row[5 + j] = (unsigned char)v;
+    float* mag = reinterpret_cast<float*>(row + kTailHead);
+    for (int k = threadIdx.x; k < n_active; k += kThreadsTail) {
+      const float re = ch_re[(size_t)b * n_active + k], im = ch_im[(size_t)b * n_active + k];
+      mag[k] = __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+    }
+    const int n_packed = row_bytes - kTailHead - 4 * n_active;
+    if (n_bytes + (int)threadIdx.x < n_packed) packed[n_bytes + threadIdx.x] = 0;
   }
+  vote_pack(bits + (size_t)b * n_bits, rep, n_bytes, blockIdx.x * kThreadsTail + threadIdx.x,
+            gridDim.x * kThreadsTail, packed);
 }
 
 // ---- kernel B: frame-aligned chunk demod, a pipeline of two launches ----
@@ -1613,6 +1664,22 @@ int amtpu_decode_predicted(const float* signals, const int* n_valid, int B, int 
   predicted_pack_kernel<<<dim3(k_slots, B), kThreadsPack, 0, stream>>>(bits, start, ok, bits0, start0, ok0, n_pred,
                                                                        k_slots, slot_bits, repetition, n_bytes,
                                                                        packed);
+  return (int)cudaGetLastError();
+}
+
+// The one-shot decoder's tail on ``stream`` over B rows of kernel A's outputs
+// (coarse, start, fine [B]; bits int8 [B, n_bits]; ch_re, ch_im [B, n_active])
+// into ``rows`` uint8 [B, row_bytes] (decode_tail_kernel). row_bytes must be
+// 12 + 4 * n_active + n_bits / repetition / 8 rounded up to a multiple of 4.
+int amtpu_decode_tail(const int* coarse, const int* start, const float* fine, const signed char* bits,
+                      const float* ch_re, const float* ch_im, int B, int n_bits, int n_active, int repetition,
+                      int row_bytes, unsigned char* rows, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || n_bits < 0 || n_active < 0 || repetition < 1) return (int)cudaErrorInvalidValue;
+  const int n_bytes = n_bits / repetition / 8;
+  if (row_bytes != kTailHead + 4 * n_active + (n_bytes + 3) / 4 * 4) return (int)cudaErrorInvalidValue;
+  const int tiles = n_bytes > 0 ? (n_bytes + kThreadsTail - 1) / kThreadsTail : 1;
+  decode_tail_kernel<<<dim3(tiles, B), kThreadsTail, 0, stream>>>(coarse, start, fine, bits, ch_re, ch_im, n_bits,
+                                                                  n_active, repetition, n_bytes, row_bytes, rows);
   return (int)cudaGetLastError();
 }
 

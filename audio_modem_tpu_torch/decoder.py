@@ -18,9 +18,11 @@ While the span recorder is on (``utils.trace``), and over every
 ``decode_signal`` made while torch.profiler records, a decode records a
 ``decode`` span with ``decode.*`` spans inside it: the upload, the bucket
 pad, each try of kernel A and its launch, each blocking read back to the
-host (``decode.sync``, through ``_read``), the vote and pack, the parse and
-each rung of the retry ladder; and the counters ``tries``, ``host_syncs``
-and ``rungs``. With the recorder off every span is one shared no-op, and
+host (``decode.sync``, through ``_read``), each try's tail launch
+(``decode.tail``), a vote and pack on the host (``decode.vote_pack``: the
+tracked rung and the chunk-frame paths), the parse and each rung of the
+retry ladder; and the counters ``tries``, ``tail_rows``, ``host_syncs`` and
+``rungs``. With the recorder off every span is one shared no-op, and
 the root's and the reads' attributes are not computed.
 """
 
@@ -40,7 +42,7 @@ from audio_modem_tpu_torch.framing import (
     parse_payload_bytes,
 )
 from audio_modem_tpu_torch.kernels import resolve_device
-from audio_modem_tpu_torch.kernels.receive import decode_fused, stream_demod
+from audio_modem_tpu_torch.kernels.receive import decode_fused, decode_tail, split_tail_row, stream_demod
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.utils import trace
@@ -49,8 +51,6 @@ PAD_BUCKET = 16384
 SYM_BUCKET = 16
 TRACK_EARLY_BIAS = 2
 TRACK_BLOCK_SYMS = 8
-
-_CORE_KEYS = ("coarse", "start", "fine_metric", "bits", "ch_re", "ch_im")
 
 
 @dataclasses.dataclass
@@ -89,14 +89,25 @@ def _padded(sig: torch.Tensor) -> torch.Tensor:
 
 
 def _read(what: str, t: torch.Tensor, cast=None):
-    """``cast(t)`` (``int`` or ``float``), or ``t`` as a numpy array where
-    ``cast`` is None: every blocking read of a device value on the decode
-    path, in a ``decode.sync`` span while the recorder is on."""
+    """``cast(t)`` (``int``, ``float`` or ``_pinned``), or ``t`` as a numpy
+    array where ``cast`` is None: every blocking read of a device value on
+    the decode path, in a ``decode.sync`` span while the recorder is on."""
     if not trace.enabled():
         return t.cpu().numpy() if cast is None else cast(t)
     trace.count("host_syncs")
     with trace.span("decode.sync", what=what):
         return t.cpu().numpy() if cast is None else cast(t)
+
+
+def _pinned(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array: a card's tensor through a fresh block of pinned
+    host memory, one copy and one wait on its stream."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def _to_bytes(bits: torch.Tensor) -> bytes:
@@ -114,9 +125,9 @@ def _rung(name: str):
     return trace.span(f"decode.rung.{name}")
 
 
-def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: ModemMode, max_syms: int):
-    """One padded signal -> (coarse, start, fine_metric, bits, ch_re, ch_im),
-    through kernel A (``decode_fused``) as a batch of one, at every length.
+def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: ModemMode, max_syms: int) -> dict:
+    """One padded signal -> kernel A's output dict at B = 1 (``decode_fused``),
+    at every length.
 
     The JAX package sends every signal its VMEM gate admits to its kernel
     A; Hopper has no such gate, since kernel A grids its stages over row,
@@ -127,8 +138,17 @@ def _core_dispatch(signal: torch.Tensor, n_valid: int, min_pos: int, mode: Modem
         dev = signal.device
         nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
         mp = torch.tensor([min_pos], dtype=torch.int32, device=dev)
-        out = decode_fused(signal[None], nv, mp, mode, max_syms)
-        return tuple(out[k][0] for k in _CORE_KEYS)
+        return decode_fused(signal[None], nv, mp, mode, max_syms)
+
+
+def _tail_read(out: dict, mode: ModemMode) -> tuple:
+    """Kernel A's row, voted and packed on the card by ``decode_tail``, read
+    in one copy: (coarse, start, fine_metric, |H|, packed bytes)."""
+    with trace.span("decode.tail"):
+        rows = decode_tail(*(out[k] for k in ("coarse", "start", "fine_metric", "bits", "ch_re", "ch_im")),
+                           mode.repetition)
+    trace.count("tail_rows")
+    return split_tail_row(_read("row", rows, _pinned)[0], mode.profile.num_active_subs)
 
 
 def _aligned(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int):
@@ -250,17 +270,16 @@ def decode_raw(
     max_syms = _max_symbols(sig_dev.shape[0], mode)
 
     min_pos, coarse, start, fine_metric = 0, -1, -1, -np.inf
-    bits = ch_re = ch_im = None
     for i in range(4):
         trace.count("tries")
         with trace.span("decode.try", index=i):
-            coarse_t, start_t, metric_t, bits, ch_re, ch_im = _core_dispatch(sig_dev, n_valid, min_pos, mode, max_syms)
-            coarse = _read("coarse", coarse_t, int)
+            out = _core_dispatch(sig_dev, n_valid, min_pos, mode, max_syms)
+            coarse, row_start, row_fine, channel_mag, packed = _tail_read(out, mode)
             if coarse < 0:
                 if fine_metric == -np.inf:
                     return FrameError("Preamble not detected"), None
                 break
-            start, fine_metric = _read("start", start_t, int), _read("metric", metric_t, float)
+            start, fine_metric = row_start, row_fine
             if fine_metric >= sync.XCORR_THRESHOLD:
                 break
             min_pos = coarse + p.fft_size  # skip past the false peak
@@ -271,7 +290,7 @@ def decode_raw(
         preamble_idx=start,
         coarse_idx=coarse,
         fine_metric=fine_metric,
-        channel_mag=_read("channel", phy.channel_magnitude(ch_re, ch_im)),
+        channel_mag=channel_mag.copy(),
     )
     ce_start = start + 2 * sym
     if ce_start + sym > n_valid:
@@ -281,10 +300,11 @@ def decode_raw(
         return FrameError("No data after CE"), info
 
     n_sym = (n_valid - data_start) // sym
-    if track_timing and n_sym > 0:
-        b, _tau = _tracked_core(sig_dev, n_valid, start, mode, n_sym)
-    else:
-        b = bits[: n_sym * bits_per_symbol(mode)]
+    if not (track_timing and n_sym > 0):
+        # the row's bytes of the frame's n_sym symbols: groups and bytes start at bit 0
+        n_bytes = n_sym * bits_per_symbol(mode) // mode.repetition // 8
+        return packed[:n_bytes].tobytes(), info
+    b, _tau = _tracked_core(sig_dev, n_valid, start, mode, n_sym)
     with trace.span("decode.vote_pack"):
         if mode.repetition > 1:
             b = majority_vote(b, mode.repetition)

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
-_LAUNCHES: dict[str, int] = {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}
+_LAUNCHES: dict[str, int] = {
+    "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+}
 
 
 def reset_launch_counts() -> None:

@@ -78,6 +78,12 @@ _SIGNATURES = {
         _P,                          # out: bits
         _P,                          # stream
     ],
+    "amtpu_decode_tail": [
+        _P, _P, _P, _P, _P, _P,      # coarse, start, fine, bits, ch_re, ch_im
+        _I, _I, _I, _I, _I,          # B, n_bits, n_active, repetition, row_bytes
+        _P,                          # out: rows
+        _P,                          # stream
+    ],
 }
 
 # C functions that return a size rather than a CUDA error code.

@@ -20,7 +20,10 @@ PyTorch prologue in front of it. The single-signal decoder runs kernel A
 at B = 1 (``decoder._core_dispatch``), as the JAX package runs its kernel
 A on every signal its VMEM gate admits; ``decode_long_fused`` is the JAX
 package's route past that gate, kept under its name and on no path of
-the port. A, B and the streaming demod end in one
+the port. ``decode_tail`` (``decode_tail_kernel``) follows kernel A in the
+single-signal decoder: one launch that votes and packs each row's bits and
+gathers its head and |H| into one row the host reads in one copy; kernel C's
+pack votes through the same device function. A, B and the streaming demod end in one
 tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
@@ -42,11 +45,13 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from audio_modem_tpu_torch import phy, sync
 from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
+from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, qam_scale
 from audio_modem_tpu_torch.tables import profile_tables
 
@@ -188,6 +193,86 @@ def decode_fused(
     check(lib, code, "decode_fused")
     count_launch("decode_fused")
     return out
+
+
+TAIL_HEAD = 12  # a tail row's head: coarse, start int32; the fine metric's float32 bits
+
+
+def tail_row_bytes(n_bits: int, n_active: int, repetition: int) -> int:
+    """Bytes of one ``decode_tail`` row: the head, |H| float32 [n_active],
+    the n_bits // repetition // 8 voted bytes, zeros to a multiple of 4."""
+    return TAIL_HEAD + 4 * n_active + -(-(n_bits // repetition // 8) // 4) * 4
+
+
+def split_tail_row(row: np.ndarray, n_active: int) -> tuple:
+    """One ``decode_tail`` row (uint8 numpy [row_bytes]) -> (coarse, start,
+    fine_metric, |H| float32 [n_active], the packed bytes and their zero
+    padding), the last two views into the row."""
+    coarse, start = (int(v) for v in row[:8].view(np.int32))
+    fine = float(row[8:TAIL_HEAD].view(np.float32)[0])
+    end = TAIL_HEAD + 4 * n_active
+    return coarse, start, fine, row[TAIL_HEAD:end].view(np.float32), row[end:]
+
+
+def decode_tail_reference(
+    coarse: torch.Tensor, start: torch.Tensor, fine_metric: torch.Tensor, bits: torch.Tensor,
+    ch_re: torch.Tensor, ch_im: torch.Tensor, repetition: int,
+) -> torch.Tensor:
+    """Plain version of ``decode_tail``: each row's head, then
+    ``phy.channel_magnitude``, then ``majority_vote`` (repetition > 1) and
+    ``bits_to_bytes`` of the whole bits row, then zeros."""
+    b, n_bits = bits.shape
+    n_active = ch_re.shape[1]
+    v = bits if repetition == 1 else majority_vote(bits, repetition)
+    parts = [
+        torch.stack([coarse.to(torch.int32), start.to(torch.int32)], dim=1).view(torch.uint8),
+        fine_metric.to(torch.float32)[:, None].view(torch.uint8),
+        phy.channel_magnitude(ch_re, ch_im).view(torch.uint8),
+        bits_to_bytes(v),
+    ]
+    row = torch.cat(parts, dim=1)
+    pad = tail_row_bytes(n_bits, n_active, repetition) - row.shape[1]
+    return torch.nn.functional.pad(row, (0, pad))
+
+
+def decode_tail(
+    coarse: torch.Tensor, start: torch.Tensor, fine_metric: torch.Tensor, bits: torch.Tensor,
+    ch_re: torch.Tensor, ch_im: torch.Tensor, repetition: int,
+) -> torch.Tensor:
+    """The one-shot decoder's tail over kernel A's outputs for B rows
+    (coarse, start int32 [B]; fine_metric float32 [B]; bits int8 [B, n_bits];
+    ch_re, ch_im float32 [B, n_active]) -> uint8 [B, tail_row_bytes(n_bits,
+    n_active, repetition)]: per row the head (``TAIL_HEAD``), |H| and the
+    voted, MSB-first packed bytes of the whole bits row (``split_tail_row``
+    reads it back). Groups and bytes start at bit 0, so the bytes of a
+    frame's first bits are a prefix of the row's. One call is one launch."""
+    if not runs_on_kernel(coarse, start, fine_metric, bits, ch_re, ch_im):
+        return decode_tail_reference(coarse, start, fine_metric, bits, ch_re, ch_im, repetition)
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    b, n_bits = bits.shape
+    n_active = ch_re.shape[1]
+    _check(coarse, "coarse", torch.int32, (b,))
+    _check(start, "start", torch.int32, (b,))
+    _check(fine_metric, "fine_metric", torch.float32, (b,))
+    _check(bits, "bits", torch.int8, (b, n_bits))
+    _check(ch_re, "ch_re", torch.float32, (b, n_active))
+    _check(ch_im, "ch_im", torch.float32, (b, n_active))
+    if b < 1 or repetition < 1:
+        raise ValueError(f"need a row and a repetition of at least 1, got B={b}, repetition={repetition}")
+    dev = bits.device
+    row_bytes = tail_row_bytes(n_bits, n_active, repetition)
+    rows = torch.empty((b, row_bytes), dtype=torch.uint8, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        code = lib.amtpu_decode_tail(
+            coarse.data_ptr(), start.data_ptr(), fine_metric.data_ptr(), bits.data_ptr(), ch_re.data_ptr(),
+            ch_im.data_ptr(), b, n_bits, n_active, repetition, row_bytes, rows.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check(lib, code, "decode_tail")
+    count_launch("decode_tail")
+    return rows
 
 
 def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:

@@ -87,6 +87,13 @@ def work_stream_demod(mode: ModemMode, b: int, n_sym: int) -> tuple[float, float
             1.0 * b * n_sym * p.symbol_len + _fft_flops(mode, b * n_sym))
 
 
+def work_decode_tail(b: int, n_bits: int, n_active: int, row_bytes: int) -> tuple[float, float]:
+    """(bytes, flops) of the one-shot decoder's tail: the head (12 bytes),
+    bits and channel in, the ``row_bytes`` row out, once; |H| (two products,
+    a sum and a root a bin) and one vote step a bit."""
+    return 1.0 * b * (12 + n_bits + 8 * n_active + row_bytes), 1.0 * b * (4 * n_active + n_bits)
+
+
 def share(work: tuple[float, float], n_samples: int, msps: float, peaks: tuple[float, float] | None) -> dict:
     """A kernel's roofline at a measured rate: ``work`` (bytes, flops) of one
     call over ``n_samples`` samples, run at ``msps`` Msamples/s. Bytes and

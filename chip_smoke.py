@@ -47,14 +47,19 @@ Phases, one line each:
      symbols of 768 samples) and 64 QPSK 2048-byte chunk frames (41 of 576)
   9. the single-signal decode with launch counts from zero: config 2 and a
      clean 32,736-byte QPSK legacy frame through api.decode on the card,
-     exact bytes, kernel A (decode_fused, B = 1) launched once per call of
-     the decoder's device core and the streaming demod not at all; kernel
-     A against its plain version on the inputs the decoder gave it (phase
-     17's checks); decode_long_fused and kernel A at B = 1 against their
+     exact bytes, kernel A (decode_fused, B = 1) and the tail (decode_tail)
+     launched once per call of the decoder's device core and the streaming
+     demod not at all; kernel A against its plain version on the inputs the
+     decoder gave it (phase 17's checks), and the tail bit for bit against
+     its plain version on the inputs the decoder gave it (every other phase
+     whose inputs path_inputs keeps holds the tail so too); decode_long_fused
+     and kernel A at B = 1 against their
      plain version on config 2's padded signal (the checks of phase 4)
  10. times: stream_demod vs plain on config 2's 12,361-symbol data region,
      decode_long_fused vs kernel A at B = 1 (kernel A beside its bound),
-     the streaming demod vs kernel B on the 64 narrowband frames, and the
+     the streaming demod vs kernel B on the 64 narrowband frames, the tail
+     vs plain on config 2's kernel A row (device time from torch.profiler,
+     beside its bound), and the
      host wall of api.decode of config 2 through kernel A and through
      decode_long_fused (median of 10 a route, in turns)
  11. SHA-256 of the int8 bits the three kernels gave in phases 4, 5 and 9,
@@ -211,7 +216,9 @@ Phases, one line each:
 
 then the kernels as one JSON line (time, plain time, launches summed over
 the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero
-(kernel A's on the decode path of phases 9, 19, 20 and 25 among them)
+(kernel A's on the decode path of phases 9, 19, 20 and 25 among them;
+the tail's on the decode path of phases 9 and 17-25, its error the largest
+|H| difference on the inputs that path_inputs kept)
 (kernel C's time and bound: every slot predicted, phase 7),
 the bound: bytes over the card's memory rate or float32 operations over
 its float32 peak, whichever is larger, from this run's shapes, each DFT
@@ -242,6 +249,7 @@ SEED = 0
 B_FLIPS_A_FRAME = 2
 B_BOUNDARY = 1e-4
 PATH_ERR_C = [0.0]  # kernel C's largest fine-metric error on the inputs that path_inputs kept
+PATH_ERR_TAIL = [0.0]  # the tail's largest |H| error on the inputs that path_inputs kept
 
 
 def fail(msg: str) -> None:
@@ -607,8 +615,10 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     (``multi_receiver.decode_predicted``; its shape carries K and the
     branch), that the decoder's device core hands kernel A
     (``decoder.decode_fused``, B = 1; tagged "``tag`` decoder", and
-    "``tag`` decoder resume" for a try with min_pos > 0) and that the
-    decoder hands the streaming demod (``decoder.stream_demod``, and
+    "``tag`` decoder resume" for a try with min_pos > 0), that the decoder
+    hands its tail after that try (``decoder.decode_tail``, under the try's
+    tag; its shape carries n_active, its symbols are the repetition) and
+    that the decoder hands the streaming demod (``decoder.stream_demod``, and
     ``receive.stream_demod``), each looked up at call time, in ``store``,
     keyed by (kernel, tag, shape, symbols). The kernels run as they would;
     ``check_path_inputs`` holds them to their plain versions afterwards.
@@ -623,9 +633,10 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
 
     real_a, real_b, real_s = batch.decode_fused, batch.decode_chunks_fused, receive.stream_demod
-    real_c, real_d = multi_receiver.decode_predicted, decoder.decode_fused
+    real_c, real_d, real_t = multi_receiver.decode_predicted, decoder.decode_fused, decoder.decode_tail
     calls_a: Counter = Counter()
     calls_c: Counter = Counter()
+    last_try = [""]  # the tag of the decoder's last kernel A try, which its tail follows
 
     def tag_of(mode) -> str:
         return f"{tag} {mode.name}" if by_mode else tag
@@ -642,9 +653,16 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
     def record_d(signals, n_valid, min_pos, mode, max_syms):
         resume = " resume" if bool((min_pos > 0).any()) else ""
         key = ("decode_fused", f"{tag_of(mode)} decoder{resume}", tuple(signals.shape), max_syms)
+        last_try[0] = key[1]
         if key not in store:
             store[key] = (signals.clone(), n_valid.clone(), min_pos.clone(), mode)
         return real_d(signals, n_valid, min_pos, mode, max_syms)
+
+    def record_t(coarse, start, fine_metric, bits, ch_re, ch_im, repetition):
+        key = ("decode_tail", last_try[0], (*bits.shape, ch_re.shape[1]), repetition)
+        if key not in store:
+            store[key] = (*(t.clone() for t in (coarse, start, fine_metric, bits, ch_re, ch_im)), repetition)
+        return real_t(coarse, start, fine_metric, bits, ch_re, ch_im, repetition)
 
     def record_c(windows, n_valid, start0, ok0, mode, n_sym, k, cadence, bits0=None):
         shape = (*windows.shape, k, "predicted" if bits0 is None else "scanned")
@@ -670,13 +688,13 @@ def path_inputs(store: dict, tag: str, shards: int = 1, by_mode: bool = False):
 
     batch.decode_fused, batch.decode_chunks_fused = record_a, record_b
     receive.stream_demod = decoder.stream_demod = record_s
-    multi_receiver.decode_predicted, decoder.decode_fused = record_c, record_d
+    multi_receiver.decode_predicted, decoder.decode_fused, decoder.decode_tail = record_c, record_d, record_t
     try:
         yield store
     finally:
         batch.decode_fused, batch.decode_chunks_fused = real_a, real_b
         receive.stream_demod = decoder.stream_demod = real_s
-        multi_receiver.decode_predicted, decoder.decode_fused = real_c, real_d
+        multi_receiver.decode_predicted, decoder.decode_fused, decoder.decode_tail = real_c, real_d, real_t
 
 
 def b_points(frames, mode, n_sym: int) -> tuple:
@@ -744,11 +762,12 @@ def plain_receive(sig, n_valid, min_pos, mode, max_syms: int, rows: int = 512) -
 
 def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple = (),
                       stream_errs: "list | None" = None) -> tuple[float, str]:
-    """Kernels A, B and C and the streaming demod against their plain versions
-    on every input that ``path_inputs`` kept: A by
+    """Kernels A, B and C, the decoder's tail and the streaming demod against
+    their plain versions on every input that ``path_inputs`` kept: A by
     ``compare_receive(by_frame=True)``, C by ``compare_predicted(strict=False)``,
-    B by equal bits over the frame's
-    symbols, the streaming demod by equal bits over its whole output. Under
+    B by equal bits over the frame's symbols, the tail by equal rows bit for
+    bit (``torch.equal``, on the same card tensors; its largest |H| error to
+    ``PATH_ERR_TAIL``), the streaming demod by equal bits over its whole output. Under
     a tag in ``noisy`` (frames through a noisy channel, whose points may sit
     on a decision boundary, where the kernel's and cuBLAS's summation orders
     round apart) B may flip the bits of at most ``B_FLIPS_A_FRAME`` points a
@@ -768,7 +787,8 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
 
     err, parts = 0.0, []
     for (name, tag, shape, n_sym), args in store.items():
-        where = f"{list(shape)} {'max_syms' if name == 'decode_fused' else 'n_sym'} {n_sym} ({tag})"
+        count = {"decode_fused": "max_syms", "decode_tail": "repetition"}.get(name, "n_sym")
+        where = f"{list(shape)} {count} {n_sym} ({tag})"
         if name == "decode_fused":
             sig, n_valid, min_pos, mode = args
             out = receive.decode_fused(sig, n_valid, min_pos, mode, n_sym)
@@ -797,6 +817,21 @@ def check_path_inputs(label: str, store: dict, noisy: tuple = (), clean: tuple =
             e_fine, rep = compare_predicted(f"{label}: kernel C at {where}", out, ref, strict=False)
             PATH_ERR_C[0] = max(PATH_ERR_C[0], e_fine)
             parts.append(f"C at {where}: {rep}")
+        elif name == "decode_tail":
+            out = receive.decode_tail(*args)
+            ref = receive.decode_tail_reference(*args)
+            mag = slice(receive.TAIL_HEAD, receive.TAIL_HEAD + 4 * shape[2])
+            e_mag = float((out[:, mag].contiguous().view(torch.float32)
+                           - ref[:, mag].contiguous().view(torch.float32)).abs().max().item())
+            if out.shape != ref.shape or not torch.equal(out, ref):
+                bad = int((out != ref).sum().item()) if out.shape == ref.shape else -1
+                fail(f"{label}: decode_tail at {where} differs from its plain version in {bad} bytes of "
+                     f"{ref.numel()} (|H| err {e_mag:.3e})")
+            PATH_ERR_TAIL[0] = max(PATH_ERR_TAIL[0], e_mag)
+            n_bytes = shape[1] // n_sym // 8
+            parts.append(f"tail at {where}: {shape[0]} row(s) of {ref.shape[1]} bytes equal bit for bit (head, "
+                         f"|H| of {shape[2]} bins, {n_bytes} voted bytes; {int((args[0] >= 0).sum().item())} "
+                         f"detected)")
         elif name == "stream_demod":
             data, ch_re, ch_im, scale, mode = args
             out = receive.stream_demod(data, ch_re, ch_im, scale, mode, n_sym)
@@ -1277,8 +1312,8 @@ def bench_phase(store: dict) -> tuple[Counter, str, tuple]:
     last = json.loads(out.getvalue().strip().splitlines()[-1])
     if set(last) != {"metric", "value", "unit", "vs_baseline"} or last != headline or written["value"] != last["value"]:
         fail(f"bench: last stdout line {last}, headline {headline}")
-    if min(counts.values()) < 1:
-        fail(f"bench: a kernel never launched: {counts}")
+    if min(counts[k] for k in ("decode_fused", "decode_predicted", "decode_chunks_fused", "stream_demod")) < 1:
+        fail(f"bench: a kernel never launched: {counts}")  # the tail is the one-shot decoder's alone
     missing = [k for k in BENCH_RATES + ("per_mode_msps", "roofline") if k not in d]
     if missing or len(d["per_mode_msps"]) != 6:
         fail(f"bench: details lack {missing} or a mode: {sorted(d)}")
@@ -2055,7 +2090,7 @@ def main() -> None:
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
     from audio_modem_tpu_torch.roofline import (bound_ms, card_peaks, work_chunks, work_decode_fused,
-                                                work_decode_predicted, work_stream_demod)
+                                                work_decode_predicted, work_decode_tail, work_stream_demod)
 
     assert_full_fp32()
     dev = torch.device("cuda", 0)
@@ -2232,7 +2267,7 @@ def main() -> None:
     if sig3.shape[0] != 392_418:
         fail(f"QPSK legacy TX: {sig3.shape[0]} samples")
     decode_inputs: dict = {}
-    decode_launches = Counter()  # kernel A's launches on the decode path (phase 9)
+    decode_launches = Counter()  # kernel A's and the tail's launches on the decode path (phase 9)
     real_core = decoder._core_dispatch
     for label, sig, m, want in (("config 2", noisy2, mode2, data2), ("QPSK legacy", sig3, MODES["QPSK"], data3)):
         cores = []
@@ -2252,13 +2287,18 @@ def main() -> None:
             decoder._core_dispatch = real_core
         if not (isinstance(res, framing.LegacyFrame) and res.crc_valid and res.data == want):
             fail(f"{label}: api.decode gave {getattr(res, 'error', type(res).__name__)}")
-        if counts9["decode_fused"] != len(cores) or counts9["stream_demod"]:
+        if counts9["decode_fused"] != len(cores) or counts9["decode_tail"] != len(cores) or counts9["stream_demod"]:
             fail(f"{label}: {len(cores)} core calls of the decoder, launches {counts9}")
         decode_launches.update(counts9)
         print(f"phase 9 api.decode {label}: {sig.shape[0]} samples -> {len(res.data)} exact bytes, CRC valid, "
               f"preamble {info.preamble_idx}; {len(cores)} core call(s), launches {counts9}", flush=True)
+    want9 = {(kernel, f"{label} decoder") for kernel in ("decode_fused", "decode_tail")
+             for label in ("config 2", "QPSK legacy")}
+    if not want9 <= {k[:2] for k in decode_inputs}:
+        fail(f"phase 9: the decoder's kernel inputs recorded only at {sorted({k[:2] for k in decode_inputs})}")
     err9, checked = check_path_inputs("phase 9", decode_inputs, clean=("QPSK legacy decoder",))
-    print(f"phase 9 kernel A against its plain version on the decoder's inputs: {checked}", flush=True)
+    print(f"phase 9 kernel A and the tail against their plain versions on the decoder's inputs: {checked}",
+          flush=True)
     del decode_inputs
     n2 = noisy2.shape[0]
     padded2 = decoder._padded(noisy2)
@@ -2308,6 +2348,18 @@ def main() -> None:
     run_cs = lambda: receive.decode_chunks_fused_stream(fr_n, m_n, ns_n)  # noqa: E731
     run_cb = lambda: receive.decode_chunks_fused(fr_n, m_n, ns_n)  # noqa: E731
     tb1, tcs1, tcs2, tb2 = time_ms(run_cb), time_ms(run_cs), time_ms(run_cs), time_ms(run_cb)
+    tail_args = tuple(ka_1[k] for k in ("coarse", "start", "fine_metric", "bits", "ch_re", "ch_im"))
+    run_t = lambda: receive.decode_tail(*tail_args, mode2.repetition)  # noqa: E731
+    plain_t = lambda: receive.decode_tail_reference(*tail_args, mode2.repetition)  # noqa: E731
+    pt1, kt1, kt2, pt2 = time_ms(plain_t), time_ms(run_t), time_ms(run_t), time_ms(plain_t)
+    # A call of either is shorter than its host launch, which the events take in: the device
+    # time a call comes from the profiler (the events' times where it sees none)
+    split_t, split_p = launch_split(run_t, reps=10), launch_split(plain_t, reps=10)
+    ms_t = sum(ms for _, ms in split_t) if split_t else statistics.median([kt1, kt2])
+    plain_ms_t = sum(ms for _, ms in split_p) if split_p else statistics.median([pt1, pt2])
+    n_bits_t, n_active_t = ka_1["bits"].shape[1], ka_1["ch_re"].shape[1]
+    row_t = receive.tail_row_bytes(n_bits_t, n_active_t, mode2.repetition)
+    bound_t = bound_ms(*work_decode_tail(1, n_bits_t, n_active_t, row_t), peaks)
     walls10 = decode_walls(noisy2, mode2, dev)
     print(f"phase 10 times {card}: stream_demod on config 2 ({ms2} symbols) {ms_s:.3f} ms ({ks1:.3f}, "
           f"{ks2:.3f}) vs plain {plain_ms_s:.3f} ms ({ps1:.3f}, {ps2:.3f}); B = 1 decode_long_fused "
@@ -2316,7 +2368,12 @@ def main() -> None:
           f"roofline share {bound_a1[0] / ms_a1:.1%}; stream_demod's bound {bound_s[0]:.4f} ms "
           f"({bound_s[1]}), roofline share {bound_s[0] / ms_s:.1%}; 64 narrowband frames "
           f"decode_chunks_fused_stream {statistics.median([tcs1, tcs2]):.3f} ms ({tcs1:.3f}, {tcs2:.3f}) vs "
-          f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); host wall of api.decode of a "
+          f"kernel B {statistics.median([tb1, tb2]):.3f} ms ({tb1:.3f}, {tb2:.3f}); decode_tail on config 2's "
+          f"kernel A row ({n_bits_t} bits, {n_active_t} bins, a {row_t}-byte row) {ms_t:.4f} ms on the device "
+          f"({'profiler' if split_t else 'no profiler time, events'}: {split_t}) vs plain {plain_ms_t:.4f} ms "
+          f"({len(split_p)} kernels), between events with the host's launch {kt1:.4f}, {kt2:.4f} vs plain "
+          f"{pt1:.4f}, {pt2:.4f} ms, its bound {bound_t[0]:.5f} ms ({bound_t[1]}), roofline share "
+          f"{bound_t[0] / ms_t:.1%}; host wall of api.decode of a "
           f"signal on the card, median of 10 a route, {walls_line('config 2', n2, walls10)}", flush=True)
 
     # 11. digests of the kernels' bits
@@ -2479,6 +2536,11 @@ def main() -> None:
          "launches": stream_launches + batch_launches["stream_demod"],
          "max_abs_err": max([float(err_s), *stream_errs25]), "ms": ms_s, "plain_ms": plain_ms_s,
          "bound_ms": bound_s[0], "bound_by": bound_s[1], "library_ms": None},
+        {"name": "decode_tail", "route": "cuda", "source": source,
+         "replaces": "audio_modem_tpu/decoder.py:298, :316-318",
+         "launches": decode_launches["decode_tail"] + batch_launches["decode_tail"],
+         "max_abs_err": PATH_ERR_TAIL[0], "ms": ms_t, "plain_ms": plain_ms_t,
+         "bound_ms": bound_t[0], "bound_by": bound_t[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

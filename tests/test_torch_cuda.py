@@ -281,6 +281,13 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     ch = torch.zeros(2, mode.profile.num_active_subs, device=cuda_device)
     with pytest.raises(ValueError):
         receive.stream_demod(sig[:, ::2], ch, ch, torch.ones(2, device=cuda_device), mode, 2)
+    i32 = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # int64 heads
+        receive.decode_tail(nv, nv, ch[:, 0].contiguous(), torch.zeros(2, 16, dtype=torch.int8, device=cuda_device),
+                            ch, ch, 1)
+    with pytest.raises(ValueError):  # a channel row short of the bits' batch
+        receive.decode_tail(i32, i32, ch[:, 0].contiguous(), torch.zeros(2, 16, dtype=torch.int8, device=cuda_device),
+                            ch[:1], ch[:1], 1)
 
 
 def _predicted_windows(name: str, chunk: int, n: int, k: int, noise: float = 0.01, zero: int | None = None,
@@ -480,7 +487,8 @@ def test_api_decode_on_card_matches_cpu(cuda_device, case):
     ref, rinfo = api.decode(sig, mode, device="cpu", **kw)
     reset_launch_counts()
     out, info = api.decode(torch.from_numpy(sig.copy()).to(cuda_device), mode, device=cuda_device, **kw)
-    assert launch_counts()["decode_fused"] >= 1
+    counts = launch_counts()
+    assert counts["decode_fused"] >= 1 and counts["decode_tail"] == counts["decode_fused"]
     assert type(out).__name__ == type(ref).__name__
     assert dataclasses.asdict(out) == dataclasses.asdict(ref)
     if payload is None:
@@ -629,7 +637,9 @@ def test_batch_receiver_on_card_matches_cpu(cuda_device, window_decode):
         runs[str(dev)] = (_receiver_state(rx), launch_counts(), {k: v["calls"] for k, v in rx.timer.report().items()})
     (cpu, cpu_launches, cpu_stages), (card, card_launches, card_stages) = runs.values()
     assert card == cpu and card_stages == cpu_stages
-    assert cpu_launches == {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}
+    assert cpu_launches == {
+        "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+    }
     assert card_launches["decode_fused" if window_decode else "decode_chunks_fused"] >= 1
     for (complete, data, *_), f in zip(card, files):
         assert complete and data == f
@@ -917,7 +927,7 @@ def test_traced_decode_lines_up_with_the_device_trace(cuda_device):
     assert not trace.enabled()
     spans, counters = trace.drain()
     assert result.crc_valid and result.data == payload
-    assert counters["host_syncs"] == 5 and counters["tries"] == 1
+    assert counters["host_syncs"] == counters["tries"] == counters["tail_rows"] == 1
     mapped = trace.on_profile_clock(spans, pair, prof.profiler.kineto_results.trace_start_ns())
     kernel_a = min(s.start_ns / 1e3 for s in mapped if s.name == "decode.kernel_a")
     first_sync_end = min(s.end_ns / 1e3 for s in mapped if s.name == "decode.sync")
@@ -925,3 +935,84 @@ def test_traced_decode_lines_up_with_the_device_trace(cuda_device):
     first_a = min(ev.time_range.start for ev in prof.events()
                   if ev.device_type == cuda and "pre_stats_kernel" in ev.name)
     assert kernel_a < first_a < first_sync_end, (kernel_a, first_a, first_sync_end)
+
+
+# (mode, samples): the benchmark's two profiles at their recordings' lengths
+# (BASELINE config 2, BPSK-REPEAT; config 1, BPSK-NARROW) and a 32 KB QPSK frame
+TAIL_PROFILES = [("BPSK-REPEAT", 7_906_500), ("BPSK-NARROW", 963_396), ("QPSK", 392_418)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("name, samples", TAIL_PROFILES)
+def test_decode_tail_matches_plain(cuda_device, name, samples, b):
+    """The one-shot decoder's tail kernel bit for bit against its plain
+    version on the card, over kernel A's output shapes at the decoder's
+    bucket for ``samples``: random heads, channels and bits. The head and
+    the bytes equal the plain version's on the CPU too; its |H| does not
+    have to, since PyTorch's CPU square root is not always correctly
+    rounded where the card's is."""
+    mode = MODES[name]
+    max_syms = decoder._max_symbols(decoder._bucket_len(samples), mode)
+    n_active = mode.profile.num_active_subs
+    g = torch.Generator(device=cuda_device).manual_seed(samples + b)
+    f32 = dict(generator=g, device=cuda_device)
+    args = (
+        torch.randint(-1, samples, (b,), dtype=torch.int32, **f32),
+        torch.randint(0, samples, (b,), dtype=torch.int32, **f32),
+        torch.rand(b, **f32),
+        torch.randint(0, 2, (b, max_syms * bits_per_symbol(mode)), dtype=torch.int8, **f32),
+        torch.randn(b, n_active, **f32),
+        torch.randn(b, n_active, **f32),
+    )
+    reset_launch_counts()
+    rows = receive.decode_tail(*args, mode.repetition)
+    assert launch_counts()["decode_tail"] == 1
+    ref = receive.decode_tail_reference(*args, mode.repetition)
+    assert rows.shape == ref.shape and torch.equal(rows, ref)
+    on_cpu = receive.decode_tail_reference(*(t.cpu() for t in args), mode.repetition)
+    mag = slice(receive.TAIL_HEAD, receive.TAIL_HEAD + 4 * n_active)
+    assert torch.equal(rows.cpu()[:, : mag.start], on_cpu[:, : mag.start])
+    assert torch.equal(rows.cpu()[:, mag.stop :], on_cpu[:, mag.stop :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["BPSK-NARROW", "QPSK"])
+def test_decode_tail_on_kernel_a_outputs(cuda_device, name):
+    """The tail over kernel A's own outputs on a frame: bit for bit its plain
+    version, and the decoder's bytes a prefix of the row's."""
+    mode = MODES[name]
+    payload = np.random.default_rng(8).bytes(1024)
+    sig = framing.build_transmit_signal(payload, mode, "t.bin", device=cuda_device)
+    padded = decoder._padded(sig)
+    max_syms = decoder._max_symbols(padded.shape[0], mode)
+    out = decoder._core_dispatch(padded, sig.shape[0], 0, mode, max_syms)
+    keys = ("coarse", "start", "fine_metric", "bits", "ch_re", "ch_im")
+    rows = receive.decode_tail(*(out[k] for k in keys), mode.repetition)
+    assert torch.equal(rows, receive.decode_tail_reference(*(out[k] for k in keys), mode.repetition))
+    raw, info = decoder.decode_raw(sig, mode, device=cuda_device)
+    _, start, _, mag, packed = receive.split_tail_row(rows.cpu().numpy()[0], mode.profile.num_active_subs)
+    assert start == info.preamble_idx and np.array_equal(mag, info.channel_mag)
+    assert packed[: len(raw)].tobytes() == raw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, chunk", [("QPSK", 2048), ("BPSK-REPEAT", 512)])
+def test_kernel_c_packs_slot_0_as_the_plain_vote_and_pack(cuda_device, name, chunk):
+    """Kernel C's slot 0 with its bits given, which it votes and packs through
+    the ``vote_pack`` body the tail shares, bit for bit the plain vote and
+    pack (``multi_receiver._vote_pack``) of random bits, flags and starts,
+    at the turbo round's chunk sizes (BPSK-REPEAT: the vote over three
+    copies)."""
+    from audio_modem_tpu_torch.parallel import multi_receiver
+
+    mode, n_sym, cadence, windows, n_valid, _ = _predicted_windows(name, chunk, 8, 2)
+    x, nv = torch.from_numpy(windows).to(cuda_device), torch.from_numpy(n_valid).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(chunk)
+    n = x.shape[0]
+    start0 = torch.randint(0, cadence, (n,), dtype=torch.int32, generator=g, device=cuda_device)
+    ok0 = torch.rand(n, generator=g, device=cuda_device) < 0.75
+    bits0 = torch.randint(0, 2, (n, n_sym * bits_per_symbol(mode)), dtype=torch.int8, generator=g,
+                          device=cuda_device)
+    out = receive.decode_predicted(x, nv, start0, ok0, mode, n_sym, 2, cadence, bits0)
+    assert torch.equal(out["packed"][:, 0], multi_receiver._vote_pack(ok0, start0, bits0, mode))

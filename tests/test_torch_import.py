@@ -211,7 +211,9 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.equal(receive.decode_chunks_fused_stream(sig, mode, 2), bits)
     out = receive.decode_long_fused(sig, nv, torch.zeros(2, dtype=torch.int32), mode, 2)
     assert not out["detected"].any()
-    assert kernels.launch_counts() == {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}
+    assert kernels.launch_counts() == {
+        "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+    }
 
 
 def test_mixed_devices_raise():

@@ -197,7 +197,9 @@ def test_cpu_round_runs_the_plain_loop(monkeypatch):
     mr._multi_decode_core(torch.from_numpy(windows), torch.from_numpy(n_valid), torch.zeros(N, dtype=torch.int32),
                           mode, n_sym, k, cadence)
     assert len(calls) == k + (k - 1)
-    assert launch_counts() == {"decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0}
+    assert launch_counts() == {
+        "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+    }
 
 
 def test_wrapper_refuses_a_mix_of_devices():
