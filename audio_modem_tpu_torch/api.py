@@ -26,6 +26,7 @@ import torch
 from audio_modem_tpu_torch import decoder, framing
 from audio_modem_tpu_torch.configs import CHUNK_THRESHOLD, ModemMode, get_mode
 from audio_modem_tpu_torch.framing import FrameError, ParseResult
+from audio_modem_tpu_torch.utils import trace
 
 
 def _resolve(mode: str | ModemMode) -> ModemMode:
@@ -110,26 +111,30 @@ def decode_chunked(
     """Decode a full chunked transmission from one long recording by scanning
     frame-by-frame (offline analog of the streaming receiver). The recording
     is host audio: a tensor is brought to the host first, and the receiver
-    uploads each window it scans, refines or decodes to ``device``."""
+    uploads each window it scans, refines or decodes to ``device``. While the
+    span recorder is on, the call is one ``rx.decode_chunked`` span (attrs
+    ``samples`` and ``mode``) around the receiver's ``rx.*`` spans."""
     from audio_modem_tpu_torch.runtime.receiver import StreamingReceiver
 
     m = _resolve(mode)
-    rx = StreamingReceiver(m, fec=fec, device=device)
-    if isinstance(signal, torch.Tensor):
-        signal = signal.detach().cpu().numpy()
-    signal = np.asarray(signal, dtype=np.float32).reshape(-1)
-    block = 4096
-    for off in range(0, len(signal), block):
-        rx.process_audio_block(signal[off : off + block])
-    rx.flush()
-    asm = rx.assembler
-    if asm.total_chunks == 0:
-        return FrameError("No metadata frame received")
-    return ChunkedDecodeResult(
-        file_name=asm.file_name,
-        data=asm.assemble(),
-        total_chunks=asm.total_chunks,
-        received_chunks=asm.received_count,
-        missing_chunks=asm.missing_chunks(),
-        crc_errors=asm.crc_errors,
-    )
+    with trace.span("rx.decode_chunked") as root:
+        rx = StreamingReceiver(m, fec=fec, device=device)
+        if isinstance(signal, torch.Tensor):
+            signal = signal.detach().cpu().numpy()
+        signal = np.asarray(signal, dtype=np.float32).reshape(-1)
+        root.set(samples=len(signal), mode=m.name)
+        block = 4096
+        for off in range(0, len(signal), block):
+            rx.process_audio_block(signal[off : off + block])
+        rx.flush()
+        asm = rx.assembler
+        if asm.total_chunks == 0:
+            return FrameError("No metadata frame received")
+        return ChunkedDecodeResult(
+            file_name=asm.file_name,
+            data=asm.assemble(),
+            total_chunks=asm.total_chunks,
+            received_chunks=asm.received_count,
+            missing_chunks=asm.missing_chunks(),
+            crc_errors=asm.crc_errors,
+        )

@@ -13,9 +13,19 @@ Per audio block: EMA DC removal -> ring write -> state dispatch:
 
 The ring and the control flow (a few comparisons per block) stay on the
 host; the scan, the refine and the frame decode run on ``device``. Each
-device call costs one upload of its window and one copy of its result back.
+device call costs one upload of its window and one copy of its result back,
+read through ``decoder._read``.
 ``device`` defaults to ``"cuda"``; without a CUDA device a receiver that is
 not given ``device="cpu"`` raises.
+
+While the span recorder is on (``utils.trace``), a block's DC removal and
+ring write record an ``rx.ingest`` span, a scan that evaluates windows an
+``rx.scan`` span (attr ``windows``), a refine an ``rx.refine`` span (attr
+``accepted``) and a frame's cut, normalization and decode an ``rx.frame``
+span (attr ``kind``: meta, data, legacy or error), with the decoder's spans
+inside it; the counters are ``rx_blocks``, ``scan_windows``, ``refines``,
+``false_peaks``, ``frames``, ``frame_errors`` and ``chunks`` (data chunks
+newly stored), beside the decoder's ``host_syncs``.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 from audio_modem_tpu_torch.kernels import resolve_device
 from audio_modem_tpu_torch.runtime.assembler import ChunkAssembler
 from audio_modem_tpu_torch.runtime.ring import RingBuffer
-from audio_modem_tpu_torch.utils import log
+from audio_modem_tpu_torch.utils import log, trace
 from audio_modem_tpu_torch.utils.metrics import StreamStats
 
 # Streaming scan uses a lower energy gate than the offline path (app.js:796)
@@ -100,8 +110,10 @@ class StreamingReceiver:
     # ---- ingest ----
 
     def process_audio_block(self, samples: np.ndarray) -> None:
-        cleaned = self._remove_dc(np.asarray(samples, dtype=np.float32))
-        self.ring.write(cleaned)
+        trace.count("rx_blocks")
+        with trace.span("rx.ingest"):
+            cleaned = self._remove_dc(np.asarray(samples, dtype=np.float32))
+            self.ring.write(cleaned)
         self._step()
 
     def _remove_dc(self, x: np.ndarray) -> np.ndarray:
@@ -133,28 +145,33 @@ class StreamingReceiver:
             return False
 
         # evaluate positions [scan_pos, scan_end] in bucketed windows
-        while self.scan_pos <= scan_end:
-            n_pos = min(scan_end - self.scan_pos + 1, SCAN_BUCKET - 2 * self._half)
-            win_len = n_pos + 2 * self._half - 1
-            window = self.ring.get_range(self.scan_pos, win_len)
-            if window is None:
-                self.scan_pos = max(self.scan_pos, self.ring.total_written - self.ring.capacity)
-                continue
-            padded = np.zeros(SCAN_BUCKET, np.float32)
-            padded[:win_len] = window
-            idx, _best = _scan_window(torch.from_numpy(padded).to(self.device), win_len, p)
-            idx = int(idx)  # the scan's one copy back to the host
-            if idx >= 0:
-                self.preamble_pos = self.scan_pos + idx
-                # Advance only past the committed peak (not the whole window)
-                # so a later true preamble in the same window is re-scanned
-                # after a refinement false-positive (app.js keeps acScanPos at
-                # the drop-commit point for the same reason).
-                self.scan_pos = self.preamble_pos + self._half
-                self.state = RecvState.PREAMBLE_DETECTED
-                return True
-            self.scan_pos += n_pos
-        return False
+        with trace.span("rx.scan") as sp:
+            windows = 0
+            while self.scan_pos <= scan_end:
+                n_pos = min(scan_end - self.scan_pos + 1, SCAN_BUCKET - 2 * self._half)
+                win_len = n_pos + 2 * self._half - 1
+                window = self.ring.get_range(self.scan_pos, win_len)
+                if window is None:
+                    self.scan_pos = max(self.scan_pos, self.ring.total_written - self.ring.capacity)
+                    continue
+                padded = np.zeros(SCAN_BUCKET, np.float32)
+                padded[:win_len] = window
+                windows += 1
+                trace.count("scan_windows")
+                idx, _best = _scan_window(torch.from_numpy(padded).to(self.device), win_len, p)
+                idx = decoder._read("scan", idx, int)  # the scan's one copy back to the host
+                if idx >= 0:
+                    self.preamble_pos = self.scan_pos + idx
+                    # Advance only past the committed peak (not the whole window)
+                    # so a later true preamble in the same window is re-scanned
+                    # after a refinement false-positive (app.js keeps acScanPos at
+                    # the drop-commit point for the same reason).
+                    self.scan_pos = self.preamble_pos + self._half
+                    self.state = RecvState.PREAMBLE_DETECTED
+                    break
+                self.scan_pos += n_pos
+            sp.set(windows=windows)
+        return self.state is RecvState.PREAMBLE_DETECTED
 
     # ---- PREAMBLE_DETECTED: fine xcorr ----
 
@@ -166,22 +183,29 @@ class StreamingReceiver:
         if self.ring.total_written < needed:
             return False  # wait for more samples (app.js:860-862)
 
-        lo = max(self.ring.total_written - self.ring.capacity, self.preamble_pos - radius, 0)
-        region_len = 2 * radius + plen
-        region = self.ring.get_range(lo, min(region_len, self.ring.available_from(lo)))
-        if region is None:
-            self._reset_to_idle()
-            return True
-        padded = np.zeros(region_len + plen, np.float32)
-        padded[: len(region)] = region
-        params = torch.tensor([self.preamble_pos - lo, len(region)], dtype=torch.int32).to(self.device)
-        best_rel, metric = _refine_window(torch.from_numpy(padded).to(self.device), params[0], params[1], p)
-        # index and metric come back in one copy (float64 holds both exactly)
-        best_rel, metric = torch.stack([best_rel.to(torch.float64), metric.to(torch.float64)]).tolist()
-        if metric < sync.XCORR_THRESHOLD:
-            # false positive -> back to scanning (app.js:879-884)
-            self.state = RecvState.IDLE
-            return True
+        with trace.span("rx.refine") as sp:
+            trace.count("refines")
+            lo = max(self.ring.total_written - self.ring.capacity, self.preamble_pos - radius, 0)
+            region_len = 2 * radius + plen
+            region = self.ring.get_range(lo, min(region_len, self.ring.available_from(lo)))
+            if region is None:
+                sp.set(accepted=False)
+                self._reset_to_idle()
+                return True
+            padded = np.zeros(region_len + plen, np.float32)
+            padded[: len(region)] = region
+            params = torch.tensor([self.preamble_pos - lo, len(region)], dtype=torch.int32).to(self.device)
+            best_rel, metric = _refine_window(torch.from_numpy(padded).to(self.device), params[0], params[1], p)
+            # index and metric come back in one copy (float64 holds both exactly)
+            pair = torch.stack([best_rel.to(torch.float64), metric.to(torch.float64)])
+            best_rel, metric = decoder._read("refine", pair, torch.Tensor.tolist)
+            accepted = metric >= sync.XCORR_THRESHOLD
+            sp.set(accepted=accepted)
+            if not accepted:
+                # false positive -> back to scanning (app.js:879-884)
+                trace.count("false_peaks")
+                self.state = RecvState.IDLE
+                return True
         # refine_xcorr returns an index relative to its input window
         self.preamble_pos = lo + int(best_rel)
         max_payload = (
@@ -204,14 +228,22 @@ class StreamingReceiver:
         return True
 
     def _demodulate_frame(self, partial_ok: bool = False) -> None:
+        trace.count("frames")
+        with trace.span("rx.frame") as sp:
+            sp.set(kind=self._decode_frame(partial_ok))
+
+    def _decode_frame(self, partial_ok: bool) -> str:
+        """Cut, normalize and decode the collected frame, route it, and resume
+        the scan: the frame's kind (meta, data, legacy or error)."""
         frame_len = self.expected_frame_end - self.preamble_pos
         if partial_ok:
             frame_len = min(frame_len, self.ring.available_from(self.preamble_pos))
         frame = self.ring.get_range(self.preamble_pos, frame_len)
         if frame is None:
             self.stats.frame_errors += 1
+            trace.count("frame_errors")
             self._reset_to_idle()
-            return
+            return "error"
         # per-frame normalization (app.js:918-925), on the host in float32 so
         # the demod is fed the same bits as the JAX package's
         mx = np.abs(frame).max()
@@ -221,6 +253,7 @@ class StreamingReceiver:
         resume_pos = None
         if isinstance(result, framing.FrameError):
             self.stats.frame_errors += 1
+            trace.count("frame_errors")
             log.frame_error(result.error, pos=self.preamble_pos)
             # Unknown frame length: skip the header and rescan the region
             # (the xcorr refinement rejects data-region false peaks).
@@ -235,9 +268,11 @@ class StreamingReceiver:
                     log.frame_decoded("meta", file=result.file_name, chunks=result.total_chunks)
                 else:
                     self.stats.frame_errors += 1
+                    trace.count("frame_errors")
                     log.frame_error("metadata CRC", pos=self.preamble_pos)
             elif isinstance(result, framing.DataFrame):
-                self.assembler.handle_data_chunk(result)
+                if self.assembler.handle_data_chunk(result):
+                    trace.count("chunks")
                 self.stats.crc_errors = self.assembler.crc_errors
                 self.stats.chunks_received = self.assembler.received_count
                 log.chunk_received(result.seq_num, self.assembler.total_chunks, crc_ok=result.crc_valid)
@@ -264,6 +299,10 @@ class StreamingReceiver:
                     self.expected_frame_end if self.expected_frame_end > 0 else self.preamble_pos + actual,
                 )
         self._reset_to_idle(resume_pos)
+        for cls, kind in ((framing.FrameError, "error"), (framing.MetaFrame, "meta"), (framing.DataFrame, "data")):
+            if isinstance(result, cls):
+                return kind
+        return "legacy"
 
     def _reset_to_idle(self, resume_pos: int | None = None) -> None:
         """Resume scanning after the current frame (app.js:974-981)."""

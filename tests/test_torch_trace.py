@@ -287,3 +287,49 @@ def test_a_span_maps_onto_the_profile_clock_around_its_ops(recorder):
     for ev in ops:
         assert t0 <= ev.time_range.start <= ev.time_range.end <= t1, (t0, ev.time_range, t1)
     assert abs((t1 - t0) - (spans[0].end_ns - spans[0].start_ns) / 1e3) < 1e-3
+
+
+def _chunked_transfer() -> np.ndarray:
+    """Three QPSK chunks as the port sends them, behind 3,000 samples of
+    noise, at 30 dB."""
+    data = np.random.default_rng(21).bytes(3 * 2048)
+    frames = [f.numpy() for f in api.encode_chunked(data, "QPSK", "k.bin", device="cpu")]
+    sig = np.concatenate([np.zeros(3000, np.float32), *frames, np.zeros(4096, np.float32)])
+    return _awgn(sig, 30.0, 5)
+
+
+def test_a_chunked_decode_counts_what_its_spans_show(recorder):
+    sig = _chunked_transfer()
+    off = api.decode_chunked(sig, "QPSK", device="cpu")
+    assert trace.drain() == ([], {})
+    trace.enable()
+    try:
+        on = api.decode_chunked(sig, "QPSK", device="cpu")
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    assert on == off and on.complete and on.crc_errors == 0
+    names = [s.name for s in spans]
+    [root] = [s for s in spans if s.parent == 0 and s.name.startswith("rx.")]
+    assert root.name == "rx.decode_chunked" and root.attrs == {"samples": len(sig), "mode": "QPSK"}
+    assert all(s.id == root.id or root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in spans)
+    assert counters["frames"] == names.count("rx.frame") == 4
+    assert counters["refines"] == names.count("rx.refine") == 4 + counters.get("false_peaks", 0)
+    assert counters["host_syncs"] == names.count("decode.sync")
+    assert counters["rx_blocks"] == names.count("rx.ingest") == -(-len(sig) // 4096)
+    assert counters["scan_windows"] == sum(s.attrs["windows"] for s in spans if s.name == "rx.scan")
+    assert counters["chunks"] == 3 and "frame_errors" not in counters
+    by_id = {s.id: s for s in spans}
+    reads = [s.attrs["what"] for s in spans if s.name == "decode.sync"]
+    assert reads.count("scan") == counters["scan_windows"] and reads.count("refine") == counters["refines"]
+    assert reads.count("bits") == counters["frames"]
+    for s in spans:
+        if s.name == "decode.sync" and s.attrs["what"] == "bits":
+            assert by_id[by_id[s.parent].parent].name == "rx.frame"  # inside decode.vote_pack
+    assert sorted(s.attrs["kind"] for s in spans if s.name == "rx.frame") == ["data"] * 3 + ["meta"]
+    assert [s.attrs["accepted"] for s in spans if s.name == "rx.refine"].count(True) == 4
+
+
+def test_a_chunked_decode_records_nothing_with_the_recorder_off(recorder):
+    api.decode_chunked(_chunked_transfer(), "QPSK", device="cpu")
+    assert trace.drain() == ([], {})
