@@ -1382,6 +1382,83 @@ decode_tail_kernel(const int* __restrict__ coarse, const int* __restrict__ start
             gridDim.x * kThreadsTail, packed);
 }
 
+// ---- the chunked receiver's scan: one launch a window ----
+//
+// Replaces no TPU kernel: the JAX package's streaming scan
+// (audio_modem_tpu/runtime/receiver.py) is plain jnp. It runs
+// sync.detect_preamble at stride kStride with no preprocess on B rows of at
+// most kStreamScanMax samples, each valid up to one n_valid, one CTA a row:
+// the row in shared memory (the pad16 layout of kernel A's scan; samples at
+// or past n_valid read as 0),
+// the 16-sample block sums in sample order, window16, the metric under the
+// validity mask, the running max (block_prefix_max), the first drop below
+// 0.7x it once it passes 0.5, and the best metric up to that drop at its
+// first index. Row b of ``out`` [B, 2] is (coarse = index * kStride or -1,
+// the best metric's float32 bits): the host reads it in one copy.
+// What bounds it: a row is 32 KB, ~10 ns of the card's bandwidth, and a
+// position is a few dozen operations, so one launch and no scratch is the
+// design: kernel A's scan is gridded over tiles of long rows and commits
+// across tiles by atomicMin, which a window of 481 positions does not need.
+
+constexpr int kStreamScanMax = 8192;                         // samples a row: the receiver's SCAN_BUCKET
+constexpr int kStreamBlocks = kStreamScanMax / kStride;      // energy blocks of a full row
+constexpr int kThreadsStreamScan = kStreamBlocks;            // a thread a position and a block
+static_assert(kStreamBlocks >= 2 * kHalfBlocks, "a full row holds a position's two halves");
+
+__global__ void __launch_bounds__(kThreadsStreamScan)
+stream_scan_kernel(const float* __restrict__ windows, int nv, int W, float min_energy, int half, int n_pos,
+                   int* __restrict__ out) {
+  __shared__ float s[kStreamScanMax + kStreamScanMax / kStride];
+  __shared__ float bp[kStreamBlocks];
+  __shared__ float be[kStreamBlocks];
+  __shared__ float redf[33];
+  __shared__ int redi[33];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lim = min(nv, W);
+  const float* x = windows + (size_t)b * W;
+  for (int i = tid; i < W; i += nt) s[pad16(i)] = i < lim ? x[i] : 0.0f;
+  __syncthreads();
+  // block sums, samples added in order (sync._strided_windowed_sum)
+  const int nbe = n_pos + 2 * kHalfBlocks - 1, nbp = n_pos + kHalfBlocks - 1;
+  for (int q = tid; q < nbe; q += nt) {
+    const float* sq = s + pad16(q * kStride);
+    float e = __fmul_rn(sq[0], sq[0]);
+    for (int j = 1; j < kStride; ++j) e = __fadd_rn(e, __fmul_rn(sq[j], sq[j]));
+    be[q] = e;
+    if (q < nbp) {
+      const float* sr = s + pad16(q * kStride + half);
+      float p = __fmul_rn(sq[0], sr[0]);
+      for (int j = 1; j < kStride; ++j) p = __fadd_rn(p, __fmul_rn(sq[j], sr[j]));
+      bp[q] = p;
+    }
+  }
+  __syncthreads();
+  const int k = tid;
+  const bool pos = k < n_pos;
+  float m = 0.0f;
+  if (pos) {
+    const float p = window16(bp + k);
+    const float ra = window16(be + k);
+    const float rb = window16(be + k + kHalfBlocks);
+    const int d = k * kStride;
+    const bool valid = d <= nv - 2 * half && ra > min_energy && rb > min_energy;
+    if (valid) m = __fdiv_rn(__fmul_rn(p, p), __fmul_rn(ra, rb));
+  }
+  // sync.first_peak_commit: max is exact in any order, so the running max and
+  // the best are the plain version's; ties go to the first index
+  const float run = block_prefix_max(m, redf);
+  const bool drop = pos && run > kAutocorrThreshold && m < __fmul_rn(0.7f, run);
+  int first = block_min(drop ? k : INT_MAX, redi);
+  if (first == INT_MAX) first = n_pos - 1;
+  const float cand = pos && k <= first ? m : 0.0f;
+  const float best = block_max(cand, redf);
+  const int idx = block_min(pos && cand == best ? k : INT_MAX, redi);
+  if (tid == 0) {
+    out[2 * b] = best > kAutocorrThreshold ? idx * kStride : -1;
+    out[2 * b + 1] = __float_as_int(best);
+  }
+}
+
 // ---- kernel B: frame-aligned chunk demod, a pipeline of two launches ----
 //
 // Replaces audio_modem_tpu/kernels/receive.py::_chunk_kernel (entry
@@ -1680,6 +1757,19 @@ int amtpu_decode_tail(const int* coarse, const int* start, const float* fine, co
   const int tiles = n_bytes > 0 ? (n_bytes + kThreadsTail - 1) / kThreadsTail : 1;
   decode_tail_kernel<<<dim3(tiles, B), kThreadsTail, 0, stream>>>(coarse, start, fine, bits, ch_re, ch_im, n_bits,
                                                                   n_active, repetition, n_bytes, row_bytes, rows);
+  return (int)cudaGetLastError();
+}
+
+// The chunked receiver's scan on ``stream`` (stream_scan_kernel): B rows of W
+// samples, each valid up to n_valid, into ``out`` int [B, 2]. half is
+// fft / 2; n_pos is the position count of sync.scan_metric at stride kStride
+// on a W-sample row.
+int amtpu_stream_scan(const float* windows, int n_valid, int B, int W, float min_energy, int half, int n_pos,
+                      int* out, cudaStream_t stream) {
+  if (B < 1 || W < 1 || W > kStreamScanMax || half != kHalfBlocks * kStride || n_pos < 1 ||
+      n_pos > kThreadsStreamScan || (n_pos + 2 * kHalfBlocks - 1) * kStride > W)
+    return (int)cudaErrorInvalidValue;
+  stream_scan_kernel<<<B, kThreadsStreamScan, 0, stream>>>(windows, n_valid, W, min_energy, half, n_pos, out);
   return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,7 @@ import torch
 
 _LAUNCHES: dict[str, int] = {
     "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+    "stream_scan": 0,
 }
 
 

@@ -84,6 +84,12 @@ _SIGNATURES = {
         _P,                          # out: rows
         _P,                          # stream
     ],
+    "amtpu_stream_scan": [
+        _P, _I, _I, _I,              # windows, n_valid, B, W
+        _F, _I, _I,                  # min_energy, half, n_pos
+        _P,                          # out: rows
+        _P,                          # stream
+    ],
 }
 
 # C functions that return a size rather than a CUDA error code.

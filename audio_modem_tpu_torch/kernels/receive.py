@@ -23,7 +23,10 @@ package's route past that gate, kept under its name and on no path of
 the port. ``decode_tail`` (``decode_tail_kernel``) follows kernel A in the
 single-signal decoder: one launch that votes and packs each row's bits and
 gathers its head and |H| into one row the host reads in one copy; kernel C's
-pack votes through the same device function. A, B and the streaming demod end in one
+pack votes through the same device function. ``stream_scan``
+(``stream_scan_kernel``) is the chunked receiver's coarse scan of a window,
+one CTA a row, into one row of (coarse, best metric) the host reads in one
+copy. A, B and the streaming demod end in one
 tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 
 from audio_modem_tpu_torch import phy, sync
-from audio_modem_tpu_torch.configs import ModemMode
+from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, qam_scale
@@ -134,9 +137,9 @@ def _table_args(mode: ModemMode, device: torch.device) -> tuple:
     )
 
 
-def _scan_positions(t: int, mode: ModemMode) -> int:
+def _scan_positions(t: int, profile: OfdmProfile) -> int:
     """Positions of ``sync.scan_metric`` at stride 16 on a T-sample row."""
-    half = mode.profile.fft_size // 2
+    half = profile.fft_size // 2
     stride = sync.COARSE_STRIDE
     if half // stride != 16:
         raise ValueError("the kernel's scan window is 16 blocks of 16 samples (fft 512)")
@@ -161,7 +164,7 @@ def decode_fused(
     _check(min_pos, "min_pos", torch.int32, (b,))
     if p.symbol_len > 768 or p.cp_len > 256:
         raise ValueError("kernel A's shared refine buffers hold cp <= 256, sym <= 768")
-    n_pos = _scan_positions(t, mode)
+    n_pos = _scan_positions(t, p)
     if n_pos < 1:
         raise ValueError(f"window of {t} samples is too short to scan")
     dev = signals.device
@@ -273,6 +276,53 @@ def decode_tail(
     check(lib, code, "decode_tail")
     count_launch("decode_tail")
     return rows
+
+
+STREAM_SCAN_MAX = 8192  # samples a row of ``stream_scan`` may have (csrc/receive.cu kStreamScanMax)
+
+
+def stream_scan_reference(windows: torch.Tensor, n_valid: int, profile: OfdmProfile, min_energy: float) -> torch.Tensor:
+    """Plain version of ``stream_scan``: ``sync.detect_preamble`` at
+    ``sync.COARSE_STRIDE``, its two outputs packed into one int32 row each."""
+    coarse, best = sync.detect_preamble(windows, profile, n_valid, min_energy=min_energy, stride=sync.COARSE_STRIDE)
+    return torch.stack([coarse, best.view(torch.int32)], dim=1)
+
+
+def stream_scan(
+    windows: torch.Tensor, n_valid: int, profile: OfdmProfile, min_energy: float, out: torch.Tensor
+) -> torch.Tensor:
+    """The chunked receiver's coarse scan: B rows [B, W] of raw samples (W at
+    most ``STREAM_SCAN_MAX``), each valid up to ``n_valid`` -> ``out``,
+    int32 [B, 2] on the windows' device: per row the coarse index of the
+    strided Schmidl-Cox scan with first-peak commit (-1 when the best metric
+    is <= 0.5) and the best metric's float32 bits, bit for bit
+    ``sync.detect_preamble(..., min_energy=min_energy,
+    stride=sync.COARSE_STRIDE)``. Samples at or past ``n_valid`` read as 0,
+    which changes no result of the plain version: no valid position reaches
+    them. The caller owns ``out``, so one that scans window after window
+    allocates nothing. One call is one launch."""
+    if not runs_on_kernel(windows, out):
+        return out.copy_(stream_scan_reference(windows, n_valid, profile, min_energy))
+    from audio_modem_tpu_torch.kernels._build import check, load_library
+
+    if windows.dim() != 2:
+        raise ValueError(f"windows: need [B, W], got {tuple(windows.shape)}")
+    b, w = windows.shape
+    _check(windows, "windows", torch.float32, (b, w))
+    _check(out, "out", torch.int32, (b, 2))
+    n_pos = _scan_positions(w, profile)
+    if b < 1 or w > STREAM_SCAN_MAX or n_pos < 1:
+        raise ValueError(f"need 1 or more rows of {STREAM_SCAN_MAX} samples at most that hold a scan position, "
+                         f"got [{b}, {w}]")
+    lib = load_library()
+    with torch.cuda.device(windows.device):
+        code = lib.amtpu_stream_scan(
+            windows.data_ptr(), int(n_valid), b, w, float(min_energy), profile.fft_size // 2, n_pos, out.data_ptr(),
+            torch.cuda.current_stream(windows.device).cuda_stream,
+        )
+    check(lib, code, "stream_scan")
+    count_launch("stream_scan")
+    return out
 
 
 def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:

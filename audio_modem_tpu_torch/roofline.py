@@ -94,6 +94,14 @@ def work_decode_tail(b: int, n_bits: int, n_active: int, row_bytes: int) -> tupl
     return 1.0 * b * (12 + n_bits + 8 * n_active + row_bytes), 1.0 * b * (4 * n_active + n_bits)
 
 
+def work_stream_scan(b: int, w: int, n_pos: int) -> tuple[float, float]:
+    """(bytes, flops) of the chunked receiver's scan: the window in and an
+    8-byte row out, once; a square and a product with their sums a sample,
+    three 16-block window sums and the metric (a product, a product, a
+    square and a division) a position."""
+    return 4.0 * b * w + 8.0 * b, 4.0 * b * w + b * n_pos * (3 * 15 + 4.0)
+
+
 def share(work: tuple[float, float], n_samples: int, msps: float, peaks: tuple[float, float] | None) -> dict:
     """A kernel's roofline at a measured rate: ``work`` (bytes, flops) of one
     call over ``n_samples`` samples, run at ``msps`` Msamples/s. Bytes and

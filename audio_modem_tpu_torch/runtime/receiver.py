@@ -3,7 +3,8 @@ audio_modem_tpu/runtime/receiver.py), host control + device compute.
 
 Per audio block: EMA DC removal -> ring write -> state dispatch:
   IDLE               incremental preamble scan over newly-covered positions
-                     (strided Schmidl-Cox scan on the device, first-peak commit)
+                     (strided Schmidl-Cox scan with first-peak commit on the
+                     device: one ``stream_scan`` launch a window)
   PREAMBLE_DETECTED  fine xcorr refinement around the candidate (device);
                      false positive -> back to IDLE (app.js:879-884)
   COLLECTING_FRAME   wait until expectedFrameEnd worth of samples exist
@@ -38,7 +39,7 @@ import torch
 
 from audio_modem_tpu_torch import decoder, framing, native, sync
 from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
-from audio_modem_tpu_torch.kernels import resolve_device
+from audio_modem_tpu_torch.kernels import receive, resolve_device
 from audio_modem_tpu_torch.runtime.assembler import ChunkAssembler
 from audio_modem_tpu_torch.runtime.ring import RingBuffer
 from audio_modem_tpu_torch.utils import log, trace
@@ -58,10 +59,12 @@ class RecvState(enum.Enum):
     DEMODULATING = 3
 
 
-def _scan_window(window: torch.Tensor, n_valid: "torch.Tensor | int", profile: OfdmProfile):
-    """Coarse scan of one zero-padded window [SCAN_BUCKET] whose first
-    ``n_valid`` samples count: (index int32 or -1, best metric)."""
-    return sync.detect_preamble(window, profile, n_valid, min_energy=STREAM_MIN_ENERGY, stride=sync.COARSE_STRIDE)
+def _scan_window(window: torch.Tensor, n_valid: int, profile: OfdmProfile, out: torch.Tensor) -> torch.Tensor:
+    """Coarse scan of one window [SCAN_BUCKET] whose first ``n_valid``
+    samples count (what lies past them is never read as signal) into
+    ``out``, its row int32 [1, 2] of ``receive.stream_scan``: the index or
+    -1, and the best metric's float32 bits."""
+    return receive.stream_scan(window[None], n_valid, profile, STREAM_MIN_ENERGY, out)
 
 
 def _refine_window(window: torch.Tensor, coarse_rel: torch.Tensor, n_valid: torch.Tensor, profile: OfdmProfile):
@@ -106,6 +109,18 @@ class StreamingReceiver:
         self.dc_alpha = dc_alpha
         self.dc_mean = 0.0
         self._half = p.fft_size // 2
+
+        # The scan's buffers, reused window after window: a staging block on
+        # the host (pinned where the scan runs on a card, so its upload does
+        # not wait), the window on the device and the row read back. A
+        # window overwrites only its first samples: the scan reads no sample
+        # past its valid length.
+        on_card = self.device.type == "cuda"
+        self._scan_host = torch.zeros(SCAN_BUCKET, dtype=torch.float32, pin_memory=on_card)
+        self._scan_dev = (
+            torch.zeros(SCAN_BUCKET, dtype=torch.float32, device=self.device) if on_card else self._scan_host
+        )
+        self._scan_row = torch.empty((1, 2), dtype=torch.int32, device=self.device)
 
     # ---- ingest ----
 
@@ -154,12 +169,15 @@ class StreamingReceiver:
                 if window is None:
                     self.scan_pos = max(self.scan_pos, self.ring.total_written - self.ring.capacity)
                     continue
-                padded = np.zeros(SCAN_BUCKET, np.float32)
-                padded[:win_len] = window
+                self._scan_host.numpy()[:win_len] = window
+                if self._scan_dev is not self._scan_host:
+                    self._scan_dev[:win_len].copy_(self._scan_host[:win_len], non_blocking=True)
                 windows += 1
                 trace.count("scan_windows")
-                idx, _best = _scan_window(torch.from_numpy(padded).to(self.device), win_len, p)
-                idx = decoder._read("scan", idx, int)  # the scan's one copy back to the host
+                row = _scan_window(self._scan_dev, win_len, p, self._scan_row)
+                # the scan's one copy back to the host; it also waits for the
+                # upload, so the staging block is free for the next window
+                idx = int(decoder._read("scan", row)[0, 0])
                 if idx >= 0:
                     self.preamble_pos = self.scan_pos + idx
                     # Advance only past the committed peak (not the whole window)

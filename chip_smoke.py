@@ -71,8 +71,11 @@ Phases, one line each:
      through api.encode_chunked on the card, brought to the host as audio,
      through api.decode_chunked(device="cuda") twice: complete, 512 chunks,
      none missing, no CRC error, exact bytes, stream_demod launched once per
-     frame; wall time, Msamples/s, multiple of real time, and the host's
-     ms per scan, refine and frame-decode call (second run)
+     frame and stream_scan once per scan window; wall time, Msamples/s,
+     multiple of real time, and the host's ms per scan, refine and
+     frame-decode call (second run); then stream_demod alone at one chunk
+     frame's shape, and stream_scan alone on one window around a preamble
+     (bit for bit its plain version; both timed, the scan beside its bound)
  13. the same at 768-sample symbols: an 8 KiB file in BPSK-NARROW behind
      20,000 samples of seeded noise at amplitude 1e-3; exact bytes
  14. persist and resume: the metadata frame and the first 256 data frames
@@ -399,11 +402,12 @@ def stage_split(timer, wall_s: float) -> dict:
     }
 
 
-def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: int) -> tuple[int, str]:
+def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: int) -> tuple[dict, str]:
     """``api.decode_chunked`` of ``signal`` on ``dev``, ``runs`` times, launch
     counts from zero each time: the file must come back complete and exact
-    with ``stream_demod`` launched at least once per frame. Returns (launches
-    of the last run, a report line)."""
+    with ``stream_demod`` launched at least once per frame and
+    ``stream_scan`` once per scan window. Returns (``launch_counts()`` of
+    the last run, a report line)."""
     from audio_modem_tpu_torch import MODES, api
     from audio_modem_tpu_torch.configs import SAMPLE_RATE
     from audio_modem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -428,6 +432,9 @@ def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: 
             fail(f"{label}: the assembled file differs from what was sent")
         if counts["stream_demod"] < total + 1:
             fail(f"{label}: {total + 1} frames but stream_demod launched {counts['stream_demod']} times")
+        if counts["stream_scan"] != timer.calls["scan_call"]:
+            fail(f"{label}: {timer.calls['scan_call']} scan windows but stream_scan launched "
+                 f"{counts['stream_scan']} times")
     wall = walls[-1]
     split = stage_split(timer, wall)
     n = len(signal)
@@ -439,7 +446,7 @@ def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: 
             f"{split['refine_calls']} ({split['refine_ms']:.3f} ms), frame decode {split['frame_s']:.3f} s in "
             f"{split['frame_calls']} ({split['frame_ms']:.3f} ms), assembler {split['assembler_s']:.3f} s, "
             f"ingest {split['ingest_s']:.3f} s")
-    return counts["stream_demod"], line
+    return counts, line
 
 
 def resume_receive(data: bytes, frames: list, mode_name: str, dev) -> str:
@@ -2090,7 +2097,8 @@ def main() -> None:
     from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
     from audio_modem_tpu_torch.roofline import (bound_ms, card_peaks, work_chunks, work_decode_fused,
-                                                work_decode_predicted, work_decode_tail, work_stream_demod)
+                                                work_decode_predicted, work_decode_tail, work_stream_demod,
+                                                work_stream_scan)
 
     assert_full_fp32()
     dev = torch.device("cuda", 0)
@@ -2390,8 +2398,8 @@ def main() -> None:
     # 12. chunked receive, BASELINE config 3 at full width
     data12 = np.random.default_rng(SEED + 12).bytes(1 << 20)
     frames12 = chunked_frames(data12, "QPSK", "config3.bin", dev)
-    chunked_launches, line = chunked_receive("chunked QPSK", data12, "QPSK", np.concatenate(frames12), dev, runs=2)
-    stream_launches = chunked_launches
+    counts12, line = chunked_receive("chunked QPSK", data12, "QPSK", np.concatenate(frames12), dev, runs=2)
+    chunked_launches = counts12["stream_demod"]
     print(f"phase 12 chunked receive QPSK {card}: {line}", flush=True)
     # stream_demod as that path calls it: one frame, B = 1, the symbol bucket of a 2048-byte chunk
     m12 = MODES["QPSK"]
@@ -2411,6 +2419,28 @@ def main() -> None:
           f"{kf2:.4f}) vs plain {statistics.median([pf1, pf2]):.4f} ms ({pf1:.4f}, {pf2:.4f}), bound "
           f"{bound_f[0]:.6f} ms ({bound_f[1]}); {chunked_launches} launches x (time - bound) = "
           f"{chunked_launches * (ms_f - bound_f[0]):.1f} ms of the transfer", flush=True)
+    # stream_scan as the receiver calls it: one full window around the first data frame's preamble, B = 1
+    from audio_modem_tpu_torch.runtime.receiver import SCAN_BUCKET, STREAM_MIN_ENERGY
+
+    sig12 = np.concatenate(frames12[:3])
+    w12 = torch.from_numpy(np.ascontiguousarray(sig12[len(frames12[0]) + pre12 - 3000:][:SCAN_BUCKET])).to(dev)
+    out_sc = torch.empty((1, 2), dtype=torch.int32, device=dev)
+    run_sc = lambda: receive.stream_scan(w12[None], SCAN_BUCKET, m12.profile, STREAM_MIN_ENERGY, out_sc)  # noqa: E731
+    plain_sc = lambda: receive.stream_scan_reference(  # noqa: E731
+        w12[None], SCAN_BUCKET, m12.profile, STREAM_MIN_ENERGY)
+    row_sc, ref_sc = run_sc(), plain_sc()
+    if not torch.equal(row_sc, ref_sc) or int(row_sc[0, 0]) < 0:
+        fail(f"stream_scan gave {row_sc.tolist()} on a window with a preamble, its plain version {ref_sc.tolist()}")
+    psc1, ksc1, ksc2, psc2 = time_ms(plain_sc), time_ms(run_sc), time_ms(run_sc), time_ms(plain_sc)
+    plain_ms_sc = statistics.median([psc1, psc2])
+    split_sc = launch_split(run_sc, reps=20)
+    ms_sc = sum(ms for _, ms in split_sc) or None
+    bound_sc = bound_ms(*work_stream_scan(1, SCAN_BUCKET, receive._scan_positions(SCAN_BUCKET, m12.profile)), peaks)
+    print(f"phase 12 stream_scan on one window ({SCAN_BUCKET} samples, B = 1, coarse {int(row_sc[0, 0])}) {card}: "
+          f"between events with the host's launch {statistics.median([ksc1, ksc2]):.4f} ms ({ksc1:.4f}, {ksc2:.4f}) vs "
+          f"plain {plain_ms_sc:.4f} ms ({psc1:.4f}, {psc2:.4f}); device time "
+          f"{ms_sc or 0.0:.5f} ms ({split_sc or 'no profiler time'}), bound {bound_sc[0]:.6f} ms ({bound_sc[1]}), "
+          f"roofline share {bound_sc[0] / ms_sc if ms_sc else 0.0:.2%}", flush=True)
 
     # 13. the same at a second symbol length, behind noise
     data13 = np.random.default_rng(SEED + 13).bytes(8 << 10)
@@ -2418,8 +2448,7 @@ def main() -> None:
     gen.manual_seed(SEED + 13)
     gap = (torch.randn(20000, generator=gen, device=dev) * 1e-3).cpu().numpy()
     sig13 = np.concatenate([gap] + chunked_frames(data13, "BPSK-NARROW", "narrow.bin", dev))
-    narrow_launches, line = chunked_receive("chunked BPSK-NARROW", data13, "BPSK-NARROW", sig13, dev, runs=1)
-    stream_launches += narrow_launches
+    counts13, line = chunked_receive("chunked BPSK-NARROW", data13, "BPSK-NARROW", sig13, dev, runs=1)
     print(f"phase 13 chunked receive BPSK-NARROW {card}: 20000 samples of noise at 1e-3, then {line}", flush=True)
 
     # 14. persist and resume
@@ -2533,7 +2562,7 @@ def main() -> None:
          "bound_ms": bound_b[0], "bound_by": bound_b[1], "library_ms": None},
         {"name": "stream_demod", "route": "cuda", "source": source,
          "replaces": "audio_modem_tpu/kernels/receive.py:666, :728",
-         "launches": stream_launches + batch_launches["stream_demod"],
+         "launches": counts12["stream_demod"] + counts13["stream_demod"] + batch_launches["stream_demod"],
          "max_abs_err": max([float(err_s), *stream_errs25]), "ms": ms_s, "plain_ms": plain_ms_s,
          "bound_ms": bound_s[0], "bound_by": bound_s[1], "library_ms": None},
         {"name": "decode_tail", "route": "cuda", "source": source,
@@ -2541,6 +2570,11 @@ def main() -> None:
          "launches": decode_launches["decode_tail"] + batch_launches["decode_tail"],
          "max_abs_err": PATH_ERR_TAIL[0], "ms": ms_t, "plain_ms": plain_ms_t,
          "bound_ms": bound_t[0], "bound_by": bound_t[1], "library_ms": None},
+        {"name": "stream_scan", "route": "cuda", "source": source,
+         "replaces": "audio_modem_tpu/runtime/receiver.py:49-50 (plain jnp)",
+         "launches": counts12["stream_scan"] + counts13["stream_scan"],
+         "max_abs_err": 0.0, "ms": ms_sc, "plain_ms": plain_ms_sc,
+         "bound_ms": bound_sc[0], "bound_by": bound_sc[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -66,6 +66,7 @@ def test_run_on_cpu_at_tiny_sizes(tmp_path, monkeypatch, capsys):
     assert bench.main("cpu", **TINY) == 0
     assert launch_counts() == {
         "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+        "stream_scan": 0,
     }  # plain versions
     headline = _last_json_line(capsys.readouterr().out)
     assert set(headline) == HEADLINE_KEYS

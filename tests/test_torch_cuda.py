@@ -1,5 +1,5 @@
-"""Kernels A, B and C and the streaming demod on the card against their
-plain versions, at small shapes; kernel C in both branches of the turbo
+"""Kernels A, B and C, the streaming demod and the chunked receiver's scan
+on the card against their plain versions, at small shapes; kernel C in both branches of the turbo
 round, on a zeroed slot, clamped predictions and K = 1, and the card's
 round without a plain predicted slot; kernel A's pipeline also at B = 1, 3 and 64 on
 windows that put its tiles' edges to the test; kernel B's pipeline and the
@@ -24,7 +24,10 @@ from audio_modem_tpu_torch import MODES, api, bench, channel, decoder, framing, 
 from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
+from audio_modem_tpu_torch.runtime.receiver import STREAM_MIN_ENERGY
 from audio_modem_tpu_torch.tables import profile_tables
+from test_torch_stream_scan import SCAN_CASES, scan_case
+from test_torch_trace import _chunked_transfer
 
 torch.set_num_threads(2)
 
@@ -288,6 +291,23 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):  # a channel row short of the bits' batch
         receive.decode_tail(i32, i32, ch[:, 0].contiguous(), torch.zeros(2, 16, dtype=torch.int8, device=cuda_device),
                             ch[:1], ch[:1], 1)
+    p = mode.profile
+    row2 = torch.empty(2, 2, dtype=torch.int32, device=cuda_device)
+    row1 = row2[:1]
+    with pytest.raises(ValueError):  # float64 windows
+        receive.stream_scan(sig.double(), 8192, p, STREAM_MIN_ENERGY, row2)
+    with pytest.raises(ValueError):  # one row, not [B, W]
+        receive.stream_scan(sig[0], 8192, p, STREAM_MIN_ENERGY, row1)
+    with pytest.raises(ValueError):  # rows past the kernel's shared window
+        receive.stream_scan(torch.zeros(1, 8208, device=cuda_device), 8208, p, STREAM_MIN_ENERGY, row1)
+    with pytest.raises(ValueError):  # too short to hold a scan position
+        receive.stream_scan(torch.zeros(1, 256, device=cuda_device), 256, p, STREAM_MIN_ENERGY, row1)
+    with pytest.raises(ValueError):  # an out row of another shape
+        receive.stream_scan(sig, 8192, p, STREAM_MIN_ENERGY, row1)
+    with pytest.raises(ValueError):  # an out row of another dtype
+        receive.stream_scan(sig, 8192, p, STREAM_MIN_ENERGY, row2.float())
+    with pytest.raises(ValueError):  # an out row on the CPU
+        receive.stream_scan(sig, 8192, p, STREAM_MIN_ENERGY, row2.cpu())
 
 
 def _predicted_windows(name: str, chunk: int, n: int, k: int, noise: float = 0.01, zero: int | None = None,
@@ -507,6 +527,62 @@ def test_api_decode_on_card_matches_cpu(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES + ["three_rows"])
+@pytest.mark.parametrize("name", PROFILE_MODES)
+def test_stream_scan_matches_plain(cuda_device, name, case):
+    """The chunked receiver's scan kernel bit for bit against
+    ``sync.detect_preamble`` (the receiver's energy gate, COARSE_STRIDE), on
+    the card's tensors and on the CPU: coarse index and best metric, in one
+    launch, on the windows of tests/test_torch_stream_scan.py; ``three_rows``
+    is B = 3 of them valid up to one n_valid."""
+    p = MODES[name].profile
+    if case == "three_rows":
+        x = np.stack([scan_case(MODES[name], c)[0] for c in ("junk_past_n_valid", "last_valid", "rising_end")])
+        nv = 5000
+    else:
+        x, nv = scan_case(MODES[name], case)
+        x = x[None]
+    win = torch.from_numpy(x).to(cuda_device)
+    reset_launch_counts()
+    rows = receive.stream_scan(win, nv, p, STREAM_MIN_ENERGY,
+                               torch.empty((x.shape[0], 2), dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    assert launch_counts()["stream_scan"] == 1 and rows.shape == (x.shape[0], 2)
+    got = rows.cpu()
+    for xs in (win, win.cpu()):
+        coarse, best = sync.detect_preamble(xs, p, nv, min_energy=STREAM_MIN_ENERGY, stride=sync.COARSE_STRIDE)
+        assert torch.equal(got[:, 0], coarse.cpu().to(torch.int32)), (got[:, 0].tolist(), coarse.tolist())
+        assert torch.equal(got[:, 1], best.cpu().view(torch.int32)), (got[:, 1].view(torch.float32).tolist(),
+                                                                       best.tolist())
+
+
+@pytest.mark.cuda
+def test_chunked_decode_scans_every_window_on_the_kernel(cuda_device):
+    """A short chunked transfer (tests/test_torch_trace.py: 3 QPSK chunks at
+    30 dB) decoded on the card with the span recorder on: every scan window
+    is one ``stream_scan`` launch and one read, and the result equals the
+    CPU decode field by field."""
+    from audio_modem_tpu_torch.utils import trace
+
+    sig = _chunked_transfer()
+    want = api.decode_chunked(sig, "QPSK", device="cpu")
+    api.decode_chunked(sig, "QPSK", device=cuda_device)  # builds and loads the kernels
+    trace.disable()
+    trace.drain()
+    reset_launch_counts()
+    trace.enable()
+    try:
+        got = api.decode_chunked(sig, "QPSK", device=cuda_device)
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    assert counters["scan_windows"] > 0 and launch_counts()["stream_scan"] == counters["scan_windows"]
+    reads = [s.attrs["what"] for s in spans if s.name == "decode.sync"]
+    assert reads.count("scan") == counters["scan_windows"]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want) and got.complete and got.crc_errors == 0
+
+
+@pytest.mark.cuda
 def test_decoder_raises_for_a_tensor_on_another_device(cuda_device):
     with pytest.raises(ValueError):
         decoder.decode_signal(torch.zeros(40000, device=cuda_device), MODES["QPSK"], device="cpu")
@@ -639,6 +715,7 @@ def test_batch_receiver_on_card_matches_cpu(cuda_device, window_decode):
     assert card == cpu and card_stages == cpu_stages
     assert cpu_launches == {
         "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+        "stream_scan": 0,
     }
     assert card_launches["decode_fused" if window_decode else "decode_chunks_fused"] >= 1
     for (complete, data, *_), f in zip(card, files):

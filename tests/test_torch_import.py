@@ -213,6 +213,7 @@ def test_cpu_tensors_take_the_plain_path():
     assert not out["detected"].any()
     assert kernels.launch_counts() == {
         "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+        "stream_scan": 0,
     }
 
 

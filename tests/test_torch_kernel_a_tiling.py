@@ -164,4 +164,4 @@ def test_fused_geometry_covers_the_plain_scan(t):
     mode = MODES["QPSK"]
     x = torch.zeros(1, t)
     want = sync.scan_metric(x, mode.profile, torch.tensor([t]), stride=sync.COARSE_STRIDE).shape[1]
-    assert receive._scan_positions(t, mode) == want
+    assert receive._scan_positions(t, mode.profile) == want

@@ -199,6 +199,7 @@ def test_cpu_round_runs_the_plain_loop(monkeypatch):
     assert len(calls) == k + (k - 1)
     assert launch_counts() == {
         "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
+        "stream_scan": 0,
     }
 
 
