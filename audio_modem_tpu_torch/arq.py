@@ -33,7 +33,7 @@ import torch
 
 from audio_modem_tpu_torch import decoder, framing, sync
 from audio_modem_tpu_torch.configs import ModemMode
-from audio_modem_tpu_torch.kernels import resolve_device
+from audio_modem_tpu_torch.kernels import read_pair, resolve_device, upload
 from audio_modem_tpu_torch.ops.bits import majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.ops.crc32 import crc32
@@ -336,7 +336,7 @@ def _decode_request(
     for the x3-repetition back-link modes. A noisy return channel is the
     ARQ session's weakest link; the reference has no return channel at all
     (spec-promised, never shipped). The signal goes to ``device`` once."""
-    sig = decoder._on_device(signal, device)
+    sig = upload(signal, device)
     raw, _info = decoder.decode_raw(sig, mode, device=sig.device)
     result: RequestFrame | framing.FrameError
     if isinstance(raw, framing.FrameError):
@@ -346,9 +346,7 @@ def _decode_request(
         if isinstance(result, RequestFrame) and result.crc_valid:
             return result
     # xcorr re-acquisition (see decoder.decode_signal)
-    xi, xm = decoder._xcorr_core(decoder._padded(sig), sig.shape[0], mode)
-    xstart_f, xmetric = torch.stack([xi.to(torch.float64), xm.to(torch.float64)]).tolist()
-    xstart = int(xstart_f)
+    xstart, xmetric = read_pair("xcorr", *decoder._xcorr_core(decoder.pad_to_bucket(sig), sig.shape[0], mode))
     if xmetric < sync.XCORR_THRESHOLD or xstart < 0:
         return result
     # symbol-count bucketing (decoder.pad_aligned_frame): the frame is

@@ -18,7 +18,7 @@ While the span recorder is on (``utils.trace``), and over every
 ``decode_signal`` made while torch.profiler records, a decode records a
 ``decode`` span with ``decode.*`` spans inside it: the upload, the bucket
 pad, each try of kernel A and its launch, each blocking read back to the
-host (``decode.sync``, through ``_read``), each try's tail launch
+host (``decode.sync``, through ``kernels.read_back``), each try's tail launch
 (``decode.tail``), a vote and pack on the host (``decode.vote_pack``: the
 tracked rung and the chunk-frame paths), the parse and each rung of the
 retry ladder; and the counters ``tries``, ``tail_rows``, ``host_syncs`` and
@@ -41,7 +41,7 @@ from audio_modem_tpu_torch.framing import (
     num_symbols_for_payload,
     parse_payload_bytes,
 )
-from audio_modem_tpu_torch.kernels import resolve_device
+from audio_modem_tpu_torch.kernels import pinned, read_back, upload
 from audio_modem_tpu_torch.kernels.receive import decode_fused, decode_tail, split_tail_row, stream_demod
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
@@ -72,46 +72,15 @@ def _max_symbols(pad_len: int, mode: ModemMode) -> int:
     return max((pad_len - 3 * mode.profile.symbol_len) // mode.profile.symbol_len, 1)
 
 
-def _on_device(signal: "np.ndarray | torch.Tensor", device) -> torch.Tensor:
-    """1-D float32 signal on ``device``; a tensor elsewhere raises."""
-    dev = resolve_device(device)
-    with trace.span("decode.upload"):
-        if isinstance(signal, torch.Tensor):
-            if signal.device.type != dev.type or (dev.index is not None and signal.device.index != dev.index):
-                raise ValueError(f"signal lies on {signal.device}, decode asked for {dev}")
-            return signal.to(torch.float32).reshape(-1)
-        return torch.from_numpy(np.array(signal, np.float32).reshape(-1)).to(dev)
-
-
-def _padded(sig: torch.Tensor) -> torch.Tensor:
+def pad_to_bucket(sig: torch.Tensor) -> torch.Tensor:
+    """``sig`` zero-padded to its length bucket (``PAD_BUCKET`` steps, two at
+    least), in a ``decode.pad`` span."""
     with trace.span("decode.pad"):
         return torch.nn.functional.pad(sig, (0, _bucket_len(sig.shape[0]) - sig.shape[0]))
 
 
-def _read(what: str, t: torch.Tensor, cast=None):
-    """``cast(t)`` (``int``, ``float`` or ``_pinned``), or ``t`` as a numpy
-    array where ``cast`` is None: every blocking read of a device value on
-    the decode path, in a ``decode.sync`` span while the recorder is on."""
-    if not trace.enabled():
-        return t.cpu().numpy() if cast is None else cast(t)
-    trace.count("host_syncs")
-    with trace.span("decode.sync", what=what):
-        return t.cpu().numpy() if cast is None else cast(t)
-
-
-def _pinned(t: torch.Tensor) -> np.ndarray:
-    """``t`` as a numpy array: a card's tensor through a fresh block of pinned
-    host memory, one copy and one wait on its stream."""
-    if t.device.type != "cuda":
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return host.numpy()
-
-
 def _to_bytes(bits: torch.Tensor) -> bytes:
-    return _read("bits", bits_to_bytes(bits)).tobytes()
+    return read_back("bits", bits_to_bytes(bits)).tobytes()
 
 
 def _parse(raw: bytes, min_len: int, erasures: np.ndarray | None = None) -> ParseResult:
@@ -148,7 +117,7 @@ def _tail_read(out: dict, mode: ModemMode) -> tuple:
         rows = decode_tail(*(out[k] for k in ("coarse", "start", "fine_metric", "bits", "ch_re", "ch_im")),
                            mode.repetition)
     trace.count("tail_rows")
-    return split_tail_row(_read("row", rows, _pinned)[0], mode.profile.num_active_subs)
+    return split_tail_row(read_back("row", rows, pinned)[0], mode.profile.num_active_subs)
 
 
 def _aligned(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int):
@@ -264,9 +233,9 @@ def decode_raw(
     resume, app.js:879-884)."""
     p = mode.profile
     sym = p.symbol_len
-    sig = _on_device(signal, device)
+    sig = upload(signal, device)
     n_valid = sig.shape[0]
-    sig_dev = _padded(sig)
+    sig_dev = pad_to_bucket(sig)
     max_syms = _max_symbols(sig_dev.shape[0], mode)
 
     min_pos, coarse, start, fine_metric = 0, -1, -1, -np.inf
@@ -324,7 +293,7 @@ def decode_signal(
     modem.js:980-984) and decoded as a chunk frame aligned there, with the
     chunk decoder's retry ladder behind it."""
     with trace.follow_profiler(), trace.span("decode") as root:
-        sig = _on_device(signal, device)
+        sig = upload(signal, device)
         if trace.enabled():
             feed = "card" if isinstance(signal, torch.Tensor) and signal.device.type == "cuda" else "host"
             root.set(mode=mode.name, feed=feed, samples=sig.shape[0])
@@ -333,8 +302,8 @@ def decode_signal(
             return result, info
         with _rung("xcorr"):
             n_valid = sig.shape[0]
-            xi, xm = _xcorr_core(_padded(sig), n_valid, mode)
-            xstart, xmetric = _read("xcorr", xi, int), _read("xcorr_metric", xm, float)
+            xi, xm = _xcorr_core(pad_to_bucket(sig), n_valid, mode)
+            xstart, xmetric = read_back("xcorr", xi, int), read_back("xcorr_metric", xm, float)
             if (
                 xmetric >= sync.XCORR_THRESHOLD
                 and xstart >= 0
@@ -360,7 +329,7 @@ def _decode_signal_once(
         with _rung("soft"):
             # soft repetition combining: summing each copy's BPSK metric before
             # the sign decision keeps the confidence a hard vote throws away
-            soft = _soft_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym)
+            soft = _soft_core(pad_to_bucket(sig), n_valid, info.preamble_idx, mode, n_sym)
             soft_raw = _to_bytes(soft_combine(soft, mode.repetition))
             soft_result = _parse(soft_raw, min_len=10)
             if not _parse_failed(soft_result):
@@ -371,7 +340,7 @@ def _decode_signal_once(
         with _rung("fec_erasures"):
             # errors-and-erasures retry: flag burst-hit bytes from the per-symbol
             # EVM and decode again with known positions (2e + f <= 32)
-            evm = _read("evm", _evm_core(_padded(sig), n_valid, info.preamble_idx, mode, n_sym))
+            evm = read_back("evm", _evm_core(pad_to_bucket(sig), n_valid, info.preamble_idx, mode, n_sym))
             flags = _byte_erasures(evm, mode, _fec_region_bytes(raw))
             if flags is not None:
                 retry = _parse(raw, min_len=10, erasures=flags)
@@ -387,7 +356,7 @@ def pad_aligned_frame(
     buckets: (frame [3*sym + n_bucket*sym], n_sym, n_bucket). Extra symbols
     demodulate to junk that the callers cut (modem.js:368)."""
     sym = mode.profile.symbol_len
-    fr = _on_device(frame, device)
+    fr = upload(frame, device)
     if 3 * sym > fr.shape[0]:
         return FrameError("Frame too short for CE")
     n_sym = (fr.shape[0] - 3 * sym) // sym
@@ -425,7 +394,7 @@ def decode_chunk_frame(frame: "np.ndarray | torch.Tensor", mode: ModemMode, devi
             raw_by = _to_bytes(b)
         if _is_fec_failure(raw_by, result):
             with _rung("fec_erasures"):
-                evm = _read("evm", _chunk_evm_core(frame_dev, mode, n_bucket)[:n_sym])
+                evm = read_back("evm", _chunk_evm_core(frame_dev, mode, n_bucket)[:n_sym])
                 flags = _byte_erasures(evm, mode, _fec_region_bytes(raw_by))
                 if flags is not None:
                     retry = _bits_to_parse(bits, n_sym, mode, min_len=6, erasures=flags)

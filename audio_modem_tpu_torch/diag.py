@@ -22,7 +22,7 @@ import torch
 
 from audio_modem_tpu_torch import decoder, framing, phy, sync
 from audio_modem_tpu_torch.configs import SAMPLE_RATE, ModemMode
-from audio_modem_tpu_torch.kernels import resolve_device
+from audio_modem_tpu_torch.kernels import read_pair, resolve_device, upload
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 
 
@@ -86,11 +86,11 @@ def analyze_loopback(
     scalars, |H| and the demodulated bits come back."""
     p = mode.profile
     sym = p.symbol_len
-    sig = decoder._on_device(recorded, device)
+    sig = upload(recorded, device)
     n_valid = sig.shape[0]
     dev = sig.device
     nv = torch.tensor([n_valid], dtype=torch.int32, device=dev)
-    pre = sync.preprocess(decoder._padded(sig)[None], nv)
+    pre = sync.preprocess(decoder.pad_to_bucket(sig)[None], nv)
 
     coarse = int(sync.detect_preamble(pre, p, nv)[0][0])
     if coarse < 0:
@@ -100,9 +100,8 @@ def analyze_loopback(
         return LoopbackReport(False, 0.0, 1.0, np.zeros(0), 0.0, "poor")
 
     start_t, metric_t = sync.refine_xcorr(pre, torch.tensor([coarse], device=dev), p, nv)
-    # index and metric come back in one copy (float64 holds both exactly)
-    start_f, metric_f = torch.stack([start_t[0].to(torch.float64), metric_t[0].to(torch.float64)]).tolist()
-    start, correlation = int(start_f), max(0.0, metric_f)
+    start, metric = read_pair("refine", start_t[0], metric_t[0])
+    correlation = max(0.0, metric)
 
     ce_start = start + 2 * sym
     if ce_start + sym > n_valid:

@@ -1,10 +1,18 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version.
+version, and the device's upload and read-back: the layer every other
+module of the port calls down into. It imports nothing above it.
 
 The dispatch rule has no switch: a wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches its kernel or raises. Nothing falls
-back. Every launch adds one to the wrapper's entry in the launch counts, so
-a run can show that its main path went through the kernels.
+back. Every launch (``_build.launch``) adds one to its kernel's entry in the
+launch counts, so a run can show that its main path went through the
+kernels.
+
+A value goes to the device through ``upload`` and comes back through
+``read_back`` (``read_pair`` for an index and its metric): while the span
+recorder is on (``utils.trace``), every read back is counted in
+``host_syncs`` and spanned as ``decode.sync``, and every upload is spanned
+as ``decode.upload``.
 
 Importing this package needs neither ``nvcc`` nor a GPU: the library is
 built and loaded at the first launch (``_build.load_library``).
@@ -12,26 +20,11 @@ built and loaded at the first launch (``_build.load_library``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-_LAUNCHES: dict[str, int] = {
-    "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
-    "stream_scan": 0,
-}
-
-
-def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
-
-
-def launch_counts() -> dict[str, int]:
-    """Launches per kernel wrapper since the last reset."""
-    return dict(_LAUNCHES)
-
-
-def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+from audio_modem_tpu_torch.kernels._build import launch_counts, reset_launch_counts  # noqa: F401
+from audio_modem_tpu_torch.utils import trace
 
 
 def resolve_device(device) -> torch.device:
@@ -55,3 +48,44 @@ def runs_on_kernel(*tensors: torch.Tensor) -> bool:
             raise ValueError(f"tensors must lie on one card, got {sorted({str(t.device) for t in tensors})}")
         return True
     raise ValueError(f"tensors must all lie on the CPU or all on CUDA, got {sorted(kinds)}")
+
+
+def upload(signal: "np.ndarray | torch.Tensor", device) -> torch.Tensor:
+    """1-D float32 signal on ``device``; a tensor elsewhere raises."""
+    dev = resolve_device(device)
+    with trace.span("decode.upload"):
+        if isinstance(signal, torch.Tensor):
+            if signal.device.type != dev.type or (dev.index is not None and signal.device.index != dev.index):
+                raise ValueError(f"signal lies on {signal.device}, decode asked for {dev}")
+            return signal.to(torch.float32).reshape(-1)
+        return torch.from_numpy(np.array(signal, np.float32).reshape(-1)).to(dev)
+
+
+def read_back(what: str, t: torch.Tensor, cast=None):
+    """``cast(t)`` (``int``, ``float``, ``torch.Tensor.tolist`` or
+    ``pinned``), or ``t`` as a numpy array where ``cast`` is None: a
+    blocking read of a device value. While the recorder is on it counts one
+    ``host_syncs`` and runs in a ``decode.sync`` span (attr ``what``)."""
+    if not trace.enabled():
+        return t.cpu().numpy() if cast is None else cast(t)
+    trace.count("host_syncs")
+    with trace.span("decode.sync", what=what):
+        return t.cpu().numpy() if cast is None else cast(t)
+
+
+def read_pair(what: str, index: torch.Tensor, metric: torch.Tensor) -> tuple[int, float]:
+    """A 0-dim index and its 0-dim metric in one ``read_back``: one float64
+    copy, which holds both exactly."""
+    i, m = read_back(what, torch.stack([index.to(torch.float64), metric.to(torch.float64)]), torch.Tensor.tolist)
+    return int(i), m
+
+
+def pinned(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array: a card's tensor through a fresh block of pinned
+    host memory, one copy and one wait on its stream."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()

@@ -1,14 +1,15 @@
 """Build the CUDA sources under ``csrc/`` into one shared library with a
-plain C interface, and load it with ctypes.
+plain C interface, load it with ctypes, and launch its kernels.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/torch_kernels/libamtpu_kernels.so csrc/*.cu
 
 The library lands in ``build/torch_kernels/`` at the root of the checkout at
 first use and is rebuilt when the hash of the sources or flags changes. No
-PyTorch header is included, so a build takes seconds. Every C entry point
-returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
-non-zero code.
+PyTorch header is included, so a build takes seconds. ``_SIGNATURES`` is
+the table of kernels: a kernel ``<name>`` is the C entry ``amtpu_<name>``,
+which returns ``cudaGetLastError()`` after its launch, and the key of its
+launch count. ``launch`` is the one way a wrapper calls an entry.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 from audio_modem_tpu_torch.utils import trace
 
@@ -35,9 +38,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C signatures: every pointer and the stream are c_void_p.
+# The kernels: amtpu_<name>'s C signature, every pointer and the stream
+# (appended by ``launch``) as c_void_p.
 _SIGNATURES = {
-    "amtpu_decode_fused": [
+    "decode_fused": [
         _P, _P, _P, _I, _I,          # signals, n_valid, min_pos, B, T
         _P, _F,                      # pre1, t_energy
         _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
@@ -48,7 +52,7 @@ _SIGNATURES = {
         _P, _P, _P,                  # out: bits, ch_re, ch_im
         _P,                          # stream
     ],
-    "amtpu_decode_predicted": [
+    "decode_predicted": [
         _P, _P, _I, _I,              # signals, n_valid, B, T
         _P, _P, _P,                  # start0, ok0, bits0 (NULL: every slot predicted)
         _P, _F,                      # pre1, t_energy
@@ -60,7 +64,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,              # out: start, fine, ok, packed
         _P,                          # stream
     ],
-    "amtpu_decode_chunks_fused": [
+    "decode_chunks_fused": [
         _P, _I, _I,                  # frames, B, T
         _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
         _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
@@ -69,7 +73,7 @@ _SIGNATURES = {
         _P,                          # out: bits
         _P,                          # stream
     ],
-    "amtpu_stream_demod": [
+    "stream_demod": [
         _P, _I, ctypes.c_longlong, _I,  # data, B, row stride, L
         _P, _P, _P,                  # ch_re, ch_im, scale
         _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
@@ -78,13 +82,13 @@ _SIGNATURES = {
         _P,                          # out: bits
         _P,                          # stream
     ],
-    "amtpu_decode_tail": [
+    "decode_tail": [
         _P, _P, _P, _P, _P, _P,      # coarse, start, fine, bits, ch_re, ch_im
         _I, _I, _I, _I, _I,          # B, n_bits, n_active, repetition, row_bytes
         _P,                          # out: rows
         _P,                          # stream
     ],
-    "amtpu_stream_scan": [
+    "stream_scan": [
         _P, _I, _I, _I,              # windows, n_valid, B, W
         _F, _I, _I,                  # min_energy, half, n_pos
         _P,                          # out: rows
@@ -92,15 +96,26 @@ _SIGNATURES = {
     ],
 }
 
-# C functions that return a size rather than a CUDA error code.
+# amtpu_<name>_scratch_floats: the scratch a kernel needs, in floats.
 _SIZES = {
-    "amtpu_decode_fused_scratch_floats": [_I, _I, _I],   # B, T, n_pos
-    "amtpu_decode_predicted_scratch_floats": [_I, _I, _I, _I],  # B, T, n_pred, slot_bits
-    "amtpu_decode_chunks_fused_scratch_floats": [_I],    # B
+    "decode_fused": [_I, _I, _I],   # B, T, n_pos
+    "decode_predicted": [_I, _I, _I, _I],  # B, T, n_pred, slot_bits
+    "decode_chunks_fused": [_I],    # B
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_launches = dict.fromkeys(_SIGNATURES, 0)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches per kernel of ``_SIGNATURES`` since the last reset."""
+    return dict(_launches)
 
 
 def _sources() -> list[Path]:
@@ -157,11 +172,11 @@ def load_library() -> ctypes.CDLL:
                     _build(lib_path, stamp, digest)
             lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = getattr(lib, f"amtpu_{name}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         for name, argtypes in _SIZES.items():
-            fn = getattr(lib, name)
+            fn = getattr(lib, f"amtpu_{name}_scratch_floats")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_longlong
         lib.amtpu_error_string.argtypes = [ctypes.c_int]
@@ -174,3 +189,20 @@ def check(lib: ctypes.CDLL, code: int, name: str) -> None:
     if code != 0:
         msg = lib.amtpu_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def scratch_floats(name: str, *dims: int) -> int:
+    """The scratch kernel ``name`` needs at ``dims``, in floats."""
+    return getattr(load_library(), f"amtpu_{name}_scratch_floats")(*dims)
+
+
+def launch(name: str, dev: torch.device, *args) -> None:
+    """``amtpu_<name>(*args, stream)`` on the current stream of ``dev``, with
+    ``dev`` made current for the call (the launch and the shared-memory
+    attribute it sets act on the current device, which need not be the
+    tensors'); raises on its error code, then counts the launch."""
+    lib = load_library()
+    with torch.cuda.device(dev):
+        code = getattr(lib, f"amtpu_{name}")(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, code, name)
+    _launches[name] += 1

@@ -31,11 +31,10 @@ tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
 demod's epilogue. Each wrapper checks its inputs,
-allocates outputs and scratch with ``torch.empty`` and launches on the
-current stream of its tensors' device, with that device made current for
-the C call (the launch and the shared-memory attribute it sets act on the
-current device, which need not be the tensors'); on CPU tensors it runs
-the plain version beside it (``*_reference``), built from sync and phy.
+allocates outputs and scratch with ``torch.empty`` and launches through
+``_build.launch`` on the current stream of its tensors' device; on CPU
+tensors it runs the plain version beside it (``*_reference``), built from
+sync, phy and ops.
 
 Output contract of ``decode_fused`` and ``decode_long_fused`` (as the JAX
 kernels'): start, coarse int32 [B]; coarse_metric, fine_metric float32 [B];
@@ -53,7 +52,8 @@ import torch
 
 from audio_modem_tpu_torch import phy, sync
 from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
-from audio_modem_tpu_torch.kernels import count_launch, runs_on_kernel
+from audio_modem_tpu_torch.kernels import runs_on_kernel
+from audio_modem_tpu_torch.kernels._build import launch, scratch_floats
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, qam_scale
 from audio_modem_tpu_torch.tables import profile_tables
@@ -155,8 +155,6 @@ def decode_fused(
     call is one launch of kernel A's pipeline."""
     if not runs_on_kernel(signals, n_valid, min_pos):
         return decode_fused_reference(signals, n_valid, min_pos, mode, max_syms)
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     p = mode.profile
     b, t = signals.shape
     _check(signals, "signals", torch.float32, (b, t))
@@ -171,8 +169,7 @@ def decode_fused(
     tabs = profile_tables(mode, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    lib = load_library()
-    scratch = torch.empty(lib.amtpu_decode_fused_scratch_floats(b, t, n_pos), **f32)
+    scratch = torch.empty(scratch_floats("decode_fused", b, t, n_pos), **f32)
     out = {
         "start": torch.empty(b, **i32),
         "coarse": torch.empty(b, **i32),
@@ -183,18 +180,15 @@ def decode_fused(
         "ch_re": torch.empty(b, p.num_active_subs, **f32),
         "ch_im": torch.empty(b, p.num_active_subs, **f32),
     }
-    with torch.cuda.device(dev):
-        code = lib.amtpu_decode_fused(
-            signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
-            tabs.pre1.data_ptr(), tabs.t_energy,
-            *_table_args(mode, dev),
-            max_syms, n_pos, scratch.data_ptr(),
-            *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
-            *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, code, "decode_fused")
-    count_launch("decode_fused")
+    launch(
+        "decode_fused", dev,
+        signals.data_ptr(), n_valid.data_ptr(), min_pos.data_ptr(), b, t,
+        tabs.pre1.data_ptr(), tabs.t_energy,
+        *_table_args(mode, dev),
+        max_syms, n_pos, scratch.data_ptr(),
+        *(out[k].data_ptr() for k in ("start", "coarse", "coarse_metric", "fine_metric", "detected")),
+        *(out[k].data_ptr() for k in ("bits", "ch_re", "ch_im")),
+    )
     return out
 
 
@@ -251,8 +245,6 @@ def decode_tail(
     frame's first bits are a prefix of the row's. One call is one launch."""
     if not runs_on_kernel(coarse, start, fine_metric, bits, ch_re, ch_im):
         return decode_tail_reference(coarse, start, fine_metric, bits, ch_re, ch_im, repetition)
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     b, n_bits = bits.shape
     n_active = ch_re.shape[1]
     _check(coarse, "coarse", torch.int32, (b,))
@@ -266,15 +258,11 @@ def decode_tail(
     dev = bits.device
     row_bytes = tail_row_bytes(n_bits, n_active, repetition)
     rows = torch.empty((b, row_bytes), dtype=torch.uint8, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        code = lib.amtpu_decode_tail(
-            coarse.data_ptr(), start.data_ptr(), fine_metric.data_ptr(), bits.data_ptr(), ch_re.data_ptr(),
-            ch_im.data_ptr(), b, n_bits, n_active, repetition, row_bytes, rows.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, code, "decode_tail")
-    count_launch("decode_tail")
+    launch(
+        "decode_tail", dev,
+        coarse.data_ptr(), start.data_ptr(), fine_metric.data_ptr(), bits.data_ptr(), ch_re.data_ptr(),
+        ch_im.data_ptr(), b, n_bits, n_active, repetition, row_bytes, rows.data_ptr(),
+    )
     return rows
 
 
@@ -303,8 +291,6 @@ def stream_scan(
     allocates nothing. One call is one launch."""
     if not runs_on_kernel(windows, out):
         return out.copy_(stream_scan_reference(windows, n_valid, profile, min_energy))
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     if windows.dim() != 2:
         raise ValueError(f"windows: need [B, W], got {tuple(windows.shape)}")
     b, w = windows.shape
@@ -314,14 +300,10 @@ def stream_scan(
     if b < 1 or w > STREAM_SCAN_MAX or n_pos < 1:
         raise ValueError(f"need 1 or more rows of {STREAM_SCAN_MAX} samples at most that hold a scan position, "
                          f"got [{b}, {w}]")
-    lib = load_library()
-    with torch.cuda.device(windows.device):
-        code = lib.amtpu_stream_scan(
-            windows.data_ptr(), int(n_valid), b, w, float(min_energy), profile.fft_size // 2, n_pos, out.data_ptr(),
-            torch.cuda.current_stream(windows.device).cuda_stream,
-        )
-    check(lib, code, "stream_scan")
-    count_launch("stream_scan")
+    launch(
+        "stream_scan", windows.device,
+        windows.data_ptr(), int(n_valid), b, w, float(min_energy), profile.fft_size // 2, n_pos, out.data_ptr(),
+    )
     return out
 
 
@@ -331,24 +313,65 @@ def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> to
     is one launch of kernel B's pipeline (peak; CE and demod)."""
     if not runs_on_kernel(frames):
         return decode_chunks_fused_reference(frames, mode, n_sym)
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     b, t = frames.shape
     _check(frames, "frames", torch.float32, (b, t))
     dev = frames.device
     if n_sym < 1 or b < 1 or t < 1:
         raise ValueError(f"need at least one frame, one sample and one symbol, got B={b}, T={t}, n_sym={n_sym}")
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
-    lib = load_library()
-    scratch = torch.empty(lib.amtpu_decode_chunks_fused_scratch_floats(b), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.amtpu_decode_chunks_fused(
-            frames.data_ptr(), b, t, *_table_args(mode, dev), n_sym, scratch.data_ptr(), bits.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, code, "decode_chunks_fused")
-    count_launch("decode_chunks_fused")
+    scratch = torch.empty(scratch_floats("decode_chunks_fused", b), dtype=torch.float32, device=dev)
+    launch(
+        "decode_chunks_fused", dev,
+        frames.data_ptr(), b, t, *_table_args(mode, dev), n_sym, scratch.data_ptr(), bits.data_ptr(),
+    )
     return bits
+
+
+def preprocess_extend(signals: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int) -> torch.Tensor:
+    """preprocess + zero-extension by (3 + max_syms) symbols, done once per
+    round for all predicted slots."""
+    sig = sync.preprocess(signals, n_valid)
+    return torch.nn.functional.pad(sig, (0, (3 + max_syms) * mode.profile.symbol_len))
+
+
+def batch_decode_predicted(
+    ext: torch.Tensor, coarse: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int
+) -> dict:
+    """Refine + CE + demod at predicted coarse positions [B] over a
+    ``preprocess_extend``'ed batch: no detection scan. The sender's exact
+    cadence puts frame k+1 at start_k + cadence up to clock drift, well
+    inside the refine radius; detection rests on the xcorr metric alone."""
+    p = mode.profile
+    sym = p.symbol_len
+    start, fine = sync.refine_xcorr(ext, coarse, p, n_valid)
+    ch_re, ch_im = phy.estimate_channel(sync.gather_windows(ext, start + 2 * sym, sym), p)
+    data = sync.gather_windows(ext, start + 3 * sym, max_syms * sym).reshape(-1, max_syms, sym)
+    return {
+        "start": start,
+        "fine_metric": fine,
+        "detected": fine >= sync.XCORR_THRESHOLD,
+        "bits": phy.demodulate(data, ch_re, ch_im, mode),
+    }
+
+
+def pack_round(detected: torch.Tensor, start: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+    """One round's results as ONE uint8 matrix [n, 5 + n_bytes]: col 0 the
+    detected flag, cols 1-4 the start (big-endian), then the decoded bytes,
+    so a round needs a single device-to-host copy."""
+    s = start.to(torch.int32)
+    head = torch.stack(
+        [detected.to(torch.uint8)] + [((s >> sh) & 0xFF).to(torch.uint8) for sh in (24, 16, 8, 0)],
+        dim=1,
+    )
+    return torch.cat([head, by], dim=1)
+
+
+def vote_pack(detected: torch.Tensor, start: torch.Tensor, bits: torch.Tensor, mode: ModemMode) -> torch.Tensor:
+    """Repetition vote, byte pack and ``pack_round`` of one slot: the plain
+    version of kernel C's pack."""
+    if mode.repetition > 1:
+        bits = majority_vote(bits, mode.repetition)
+    return pack_round(detected, start, bits_to_bytes(bits))
 
 
 def decode_predicted_reference(
@@ -364,24 +387,21 @@ def decode_predicted_reference(
 ) -> dict:
     """Plain version of ``decode_predicted``: the turbo round's loop of
     plain predicted slots (the JAX package's lax.scan of
-    _predicted_signal_decode), one ``batch.batch_decode_predicted`` a slot
-    over the ``batch.preprocess_extend``'ed windows."""
-    # parallel.batch and parallel.multi_receiver import this module
-    from audio_modem_tpu_torch.parallel import batch, multi_receiver
-
+    _predicted_signal_decode), one ``batch_decode_predicted`` a slot over
+    the ``preprocess_extend``'ed windows."""
     w = windows.shape[1]
-    slots = [] if bits0 is None else [multi_receiver._vote_pack(ok0, start0, bits0, mode)]
+    slots = [] if bits0 is None else [vote_pack(ok0, start0, bits0, mode)]
     prev_start, prev_ok = start0.to(torch.int32), ok0
     starts, fines, oks = [], [], []
     n_pred = k_frames - len(slots)
     if n_pred:
-        ext = batch.preprocess_extend(windows, n_valid, mode, n_sym_frame)
+        ext = preprocess_extend(windows, n_valid, mode, n_sym_frame)
         for _ in range(n_pred):
             coarse = torch.clamp(prev_start + cadence, 0, w - 1).to(torch.int32)
-            out = batch.batch_decode_predicted(ext, coarse, n_valid, mode, n_sym_frame)
+            out = batch_decode_predicted(ext, coarse, n_valid, mode, n_sym_frame)
             prev_ok = out["detected"] & prev_ok
             prev_start = out["start"].to(torch.int32)
-            slots.append(multi_receiver._vote_pack(prev_ok, prev_start, out["bits"], mode))
+            slots.append(vote_pack(prev_ok, prev_start, out["bits"], mode))
             starts.append(prev_start)
             fines.append(out["fine_metric"])
             oks.append(prev_ok)
@@ -423,8 +443,6 @@ def decode_predicted(
     given = [windows, n_valid, start0, ok0] + ([] if bits0 is None else [bits0])
     if not runs_on_kernel(*given):
         return decode_predicted_reference(windows, n_valid, start0, ok0, mode, n_sym_frame, k_frames, cadence, bits0)
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     p = mode.profile
     n, w = windows.shape
     slot_bits = n_sym_frame * bits_per_symbol(mode)
@@ -443,26 +461,21 @@ def decode_predicted(
     n_bytes = slot_bits // mode.repetition // 8
     dev = windows.device
     tabs = profile_tables(mode, dev)
-    lib = load_library()
-    scratch = torch.empty(lib.amtpu_decode_predicted_scratch_floats(n, w, n_pred, slot_bits),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats("decode_predicted", n, w, n_pred, slot_bits), dtype=torch.float32, device=dev)
     out = {
         "packed": torch.empty((n, k_frames, 5 + n_bytes), dtype=torch.uint8, device=dev),
         "start": torch.empty((n, n_pred), dtype=torch.int32, device=dev),
         "fine_metric": torch.empty((n, n_pred), dtype=torch.float32, device=dev),
         "detected": torch.empty((n, n_pred), dtype=torch.bool, device=dev),
     }
-    with torch.cuda.device(dev):
-        code = lib.amtpu_decode_predicted(
-            windows.data_ptr(), n_valid.data_ptr(), n, w, start0.data_ptr(), ok0.data_ptr(),
-            None if bits0 is None else bits0.data_ptr(),
-            tabs.pre1.data_ptr(), tabs.t_energy, tabs.demod_bins.data_ptr(), tabs.fft_twiddle.data_ptr(),
-            *_table_args(mode, dev), n_sym_frame, n_pred, k_frames, cadence, mode.repetition, scratch.data_ptr(),
-            *(out[k].data_ptr() for k in ("start", "fine_metric", "detected", "packed")),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, code, "decode_predicted")
-    count_launch("decode_predicted")
+    launch(
+        "decode_predicted", dev,
+        windows.data_ptr(), n_valid.data_ptr(), n, w, start0.data_ptr(), ok0.data_ptr(),
+        None if bits0 is None else bits0.data_ptr(),
+        tabs.pre1.data_ptr(), tabs.t_energy, tabs.demod_bins.data_ptr(), tabs.fft_twiddle.data_ptr(),
+        *_table_args(mode, dev), n_sym_frame, n_pred, k_frames, cadence, mode.repetition, scratch.data_ptr(),
+        *(out[k].data_ptr() for k in ("start", "fine_metric", "detected", "packed")),
+    )
     return out
 
 
@@ -491,8 +504,6 @@ def stream_demod(
     _words_to_bits, without their sectioned and word layouts."""
     if not runs_on_kernel(data, ch_re, ch_im, scale):
         return stream_demod_reference(data, ch_re, ch_im, scale, mode, n_sym)
-    from audio_modem_tpu_torch.kernels._build import check, load_library
-
     p = mode.profile
     if data.dim() != 2 or data.dtype != torch.float32 or data.stride(1) != 1:
         raise ValueError(f"data: need float32 [B, L] with unit sample stride, got {data.dtype} "
@@ -505,14 +516,11 @@ def stream_demod(
         raise ValueError(f"need at least one stream and one symbol, got B={b}, n_sym={n_sym}")
     dev = data.device
     bits = torch.empty(b, n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        code = lib.amtpu_stream_demod(
-            data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
-            *_table_args(mode, dev), n_sym, bits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, code, "stream_demod")
-    count_launch("stream_demod")
+    launch(
+        "stream_demod", dev,
+        data.data_ptr(), b, data.stride(0), length, ch_re.data_ptr(), ch_im.data_ptr(), scale.data_ptr(),
+        *_table_args(mode, dev), n_sym, bits.data_ptr(),
+    )
     return bits
 
 

@@ -7,9 +7,10 @@ VMEM gate, and kernel A grids its stages over tiles and streams. The
 single-signal decoder runs the same kernel at B = 1 (see
 ``decoder._core_dispatch``). The frame-aligned demod goes through
 kernel B. ``batch_decode_predicted`` (refine + CE + demod of one
-cadence-predicted slot) is plain PyTorch: the turbo round's plain version
-(``kernels.receive.decode_predicted_reference``) runs it slot by slot,
-the card runs kernel C instead. The AWGN loopback step
+cadence-predicted slot) and ``preprocess_extend`` are plain PyTorch, kept
+in kernels/receive.py beside the turbo round's plain version
+(``decode_predicted_reference``), which runs them slot by slot; the card
+runs kernel C instead. The AWGN loopback step
 (``batch_loopback_step``) is plain PyTorch.
 
 ``batch_decode_signals``, ``batch_decode_chunk_frames`` and
@@ -24,12 +25,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audio_modem_tpu_torch import phy, sync
+from audio_modem_tpu_torch import phy
 from audio_modem_tpu_torch.channel import awgn
 from audio_modem_tpu_torch.configs import ModemMode
 from audio_modem_tpu_torch.kernels.receive import decode_chunks_fused, decode_fused
-# The plain receive pipeline (counterpart of _batch_decode_signals_xla) is
-# kernel A's plain version, kept beside the kernel in kernels/receive.py.
+# The plain receive pipeline (counterpart of _batch_decode_signals_xla) and
+# the predicted slot's plain bodies are kernel A's and kernel C's plain
+# versions, kept beside the kernels in kernels/receive.py.
+from audio_modem_tpu_torch.kernels.receive import batch_decode_predicted, preprocess_extend  # noqa: F401
 from audio_modem_tpu_torch.kernels.receive import decode_fused_reference as _batch_decode_signals_plain  # noqa: F401
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
@@ -89,33 +92,6 @@ def batch_decode_signals(
     if min_pos is None:
         min_pos = torch.zeros(signals.shape[0], dtype=torch.int32, device=signals.device)
     return decode_fused(signals, n_valid.to(torch.int32), min_pos.to(torch.int32), mode, max_syms)
-
-
-def preprocess_extend(signals: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int) -> torch.Tensor:
-    """preprocess + zero-extension by (3 + max_syms) symbols, done once per
-    round for all predicted slots."""
-    sig = sync.preprocess(signals, n_valid)
-    return torch.nn.functional.pad(sig, (0, (3 + max_syms) * mode.profile.symbol_len))
-
-
-def batch_decode_predicted(
-    ext: torch.Tensor, coarse: torch.Tensor, n_valid: torch.Tensor, mode: ModemMode, max_syms: int
-) -> dict:
-    """Refine + CE + demod at predicted coarse positions [B] over a
-    ``preprocess_extend``'ed batch: no detection scan. The sender's exact
-    cadence puts frame k+1 at start_k + cadence up to clock drift, well
-    inside the refine radius; detection rests on the xcorr metric alone."""
-    p = mode.profile
-    sym = p.symbol_len
-    start, fine = sync.refine_xcorr(ext, coarse, p, n_valid)
-    ch_re, ch_im = phy.estimate_channel(sync.gather_windows(ext, start + 2 * sym, sym), p)
-    data = sync.gather_windows(ext, start + 3 * sym, max_syms * sym).reshape(-1, max_syms, sym)
-    return {
-        "start": start,
-        "fine_metric": fine,
-        "detected": fine >= sync.XCORR_THRESHOLD,
-        "bits": phy.demodulate(data, ch_re, ch_im, mode),
-    }
 
 
 def batch_loopback_step(

@@ -38,8 +38,11 @@ import torch
 from audio_modem_tpu_torch import decoder, framing, native, sync
 from audio_modem_tpu_torch.configs import FRAME_DATA, ModemMode, OfdmProfile
 from audio_modem_tpu_torch.kernels import resolve_device
-from audio_modem_tpu_torch.kernels.receive import decode_predicted
-from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
+from audio_modem_tpu_torch.kernels.receive import decode_predicted, vote_pack
+# The round's packed rows (counterpart of _pack_round) are built beside
+# kernel C's plain version in kernels/receive.py.
+from audio_modem_tpu_torch.kernels.receive import pack_round as _pack_round  # noqa: F401
+from audio_modem_tpu_torch.ops.bits import bits_to_bytes, soft_combine
 from audio_modem_tpu_torch.parallel import batch
 from audio_modem_tpu_torch.parallel.batch import batch_decode_chunk_frames_packed
 from audio_modem_tpu_torch.parallel.mesh import Sharded, StreamMesh, shard_rows
@@ -92,18 +95,6 @@ def _ring_gather(ring: "DeviceRing", rows, rel_starts, length: int, shard: int =
     return out
 
 
-def _pack_round(detected: torch.Tensor, start: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
-    """One round's results as ONE uint8 matrix [n, 5 + n_bytes]: col 0 the
-    detected flag, cols 1-4 the start (big-endian), then the decoded bytes,
-    so a round needs a single device-to-host copy."""
-    s = start.to(torch.int32)
-    head = torch.stack(
-        [detected.to(torch.uint8)] + [((s >> sh) & 0xFF).to(torch.uint8) for sh in (24, 16, 8, 0)],
-        dim=1,
-    )
-    return torch.cat([head, by], dim=1)
-
-
 def _unpack_round(packed: np.ndarray):
     detected = packed[..., 0].astype(bool)
     starts = (
@@ -147,13 +138,6 @@ def _to_host(packed: "torch.Tensor | Sharded") -> np.ndarray:
     """A round's packed rows on the host, in stream order: one
     device-to-host copy (per shard when sharded)."""
     return packed.numpy() if isinstance(packed, Sharded) else packed.cpu().numpy()
-
-
-def _vote_pack(detected: torch.Tensor, start: torch.Tensor, bits: torch.Tensor, mode: ModemMode) -> torch.Tensor:
-    """Repetition vote, byte pack and ``_pack_round`` of one slot."""
-    if mode.repetition > 1:
-        bits = majority_vote(bits, mode.repetition)
-    return _pack_round(detected, start, bits_to_bytes(bits))
 
 
 class DeviceRing:
@@ -288,7 +272,7 @@ def _multi_decode_core(
 
     Slot 0's full receive is kernel A; the predicted slots, their vote and
     pack and the packed matrix are kernel C (``decode_predicted``), whose
-    plain version on the CPU is the loop of ``batch.batch_decode_predicted``
+    plain version on the CPU is the loop of ``batch_decode_predicted``
     that the JAX package scans."""
     n_valid = n_valid.to(torch.int32)
     if pred0 is None:
@@ -319,7 +303,7 @@ def _batch_window_decode(windows: torch.Tensor, n_valid: torch.Tensor, mode: Mod
     """One full receive (kernel A) over every scanning stream's window with
     the repetition vote and byte pack behind it -> packed [n, 5 + n_bytes]."""
     out = batch.batch_decode_signals(windows, n_valid, mode, max_syms)
-    return _vote_pack(out["detected"], out["start"], out["bits"], mode)
+    return vote_pack(out["detected"], out["start"], out["bits"], mode)
 
 
 def _round_inputs(ring: DeviceRing, params: "np.ndarray | torch.Tensor", w: int) -> list:
@@ -356,7 +340,7 @@ def _batch_window_decode_dev(
 
     def body(windows, dev):
         out = batch.batch_decode_signals(windows, dev[2], mode, max_syms, min_pos=dev[1])
-        return _vote_pack(out["detected"], out["start"], out["bits"], mode)
+        return vote_pack(out["detected"], out["start"], out["bits"], mode)
 
     return _per_shard(ring, params, w, body)
 

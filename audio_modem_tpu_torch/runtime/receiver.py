@@ -15,7 +15,7 @@ Per audio block: EMA DC removal -> ring write -> state dispatch:
 The ring and the control flow (a few comparisons per block) stay on the
 host; the scan, the refine and the frame decode run on ``device``. Each
 device call costs one upload of its window and one copy of its result back,
-read through ``decoder._read``.
+read through ``kernels.read_back``.
 ``device`` defaults to ``"cuda"``; without a CUDA device a receiver that is
 not given ``device="cpu"`` raises.
 
@@ -39,7 +39,7 @@ import torch
 
 from audio_modem_tpu_torch import decoder, framing, native, sync
 from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
-from audio_modem_tpu_torch.kernels import receive, resolve_device
+from audio_modem_tpu_torch.kernels import read_back, read_pair, receive, resolve_device
 from audio_modem_tpu_torch.runtime.assembler import ChunkAssembler
 from audio_modem_tpu_torch.runtime.ring import RingBuffer
 from audio_modem_tpu_torch.utils import log, trace
@@ -177,7 +177,7 @@ class StreamingReceiver:
                 row = _scan_window(self._scan_dev, win_len, p, self._scan_row)
                 # the scan's one copy back to the host; it also waits for the
                 # upload, so the staging block is free for the next window
-                idx = int(decoder._read("scan", row)[0, 0])
+                idx = int(read_back("scan", row)[0, 0])
                 if idx >= 0:
                     self.preamble_pos = self.scan_pos + idx
                     # Advance only past the committed peak (not the whole window)
@@ -213,10 +213,8 @@ class StreamingReceiver:
             padded = np.zeros(region_len + plen, np.float32)
             padded[: len(region)] = region
             params = torch.tensor([self.preamble_pos - lo, len(region)], dtype=torch.int32).to(self.device)
-            best_rel, metric = _refine_window(torch.from_numpy(padded).to(self.device), params[0], params[1], p)
-            # index and metric come back in one copy (float64 holds both exactly)
-            pair = torch.stack([best_rel.to(torch.float64), metric.to(torch.float64)])
-            best_rel, metric = decoder._read("refine", pair, torch.Tensor.tolist)
+            best_rel, metric = read_pair(
+                "refine", *_refine_window(torch.from_numpy(padded).to(self.device), params[0], params[1], p))
             accepted = metric >= sync.XCORR_THRESHOLD
             sp.set(accepted=accepted)
             if not accepted:
@@ -225,7 +223,7 @@ class StreamingReceiver:
                 self.state = RecvState.IDLE
                 return True
         # refine_xcorr returns an index relative to its input window
-        self.preamble_pos = lo + int(best_rel)
+        self.preamble_pos = lo + best_rel
         max_payload = (
             (self.assembler.chunk_size or 4096) + 11 if self.meta_received else PRE_META_MAX_PAYLOAD
         )

@@ -2309,7 +2309,7 @@ def main() -> None:
           flush=True)
     del decode_inputs
     n2 = noisy2.shape[0]
-    padded2 = decoder._padded(noisy2)
+    padded2 = decoder.pad_to_bucket(noisy2)
     ms2 = decoder._max_symbols(padded2.shape[0], mode2)
     nv2 = torch.tensor([n2], dtype=torch.int32, device=dev)
     mp2 = torch.zeros(1, dtype=torch.int32, device=dev)

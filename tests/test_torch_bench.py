@@ -64,10 +64,7 @@ def test_run_on_cpu_at_tiny_sizes(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("AMT_BENCH_DETAILS", str(details_path))
     reset_launch_counts()
     assert bench.main("cpu", **TINY) == 0
-    assert launch_counts() == {
-        "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
-        "stream_scan": 0,
-    }  # plain versions
+    assert not any(launch_counts().values())  # plain versions
     headline = _last_json_line(capsys.readouterr().out)
     assert set(headline) == HEADLINE_KEYS
     assert headline["unit"] == "Msamples/s" and headline["value"] > 0

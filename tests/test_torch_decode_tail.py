@@ -17,7 +17,7 @@ import torch
 from audio_modem_tpu_torch import api, decoder, framing, phy, sync
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.framing import FrameError
-from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts, upload
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 
@@ -95,9 +95,9 @@ def _parent_decode_raw(signal, mode, track_timing=False, device="cpu"):
     pack of the frame's truncated bits."""
     p = mode.profile
     sym = p.symbol_len
-    sig = decoder._on_device(signal, device)
+    sig = upload(signal, device)
     n_valid = sig.shape[0]
-    sig_dev = decoder._padded(sig)
+    sig_dev = decoder.pad_to_bucket(sig)
     max_syms = decoder._max_symbols(sig_dev.shape[0], mode)
     min_pos, coarse, start, fine_metric = 0, -1, -1, -np.inf
     out = None

@@ -14,7 +14,7 @@ import torch
 
 from audio_modem_tpu_torch import MODES, api, arq, bench, channel, decoder, diag, entry, framing
 from audio_modem_tpu_torch import kernels
-from audio_modem_tpu_torch.kernels import receive
+from audio_modem_tpu_torch.kernels import _build, receive
 from audio_modem_tpu_torch.parallel import multi_receiver, multihost
 from audio_modem_tpu_torch.runtime import ingest
 from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
@@ -211,10 +211,69 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.equal(receive.decode_chunks_fused_stream(sig, mode, 2), bits)
     out = receive.decode_long_fused(sig, nv, torch.zeros(2, dtype=torch.int32), mode, 2)
     assert not out["detected"].any()
-    assert kernels.launch_counts() == {
-        "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
-        "stream_scan": 0,
+    assert not any(kernels.launch_counts().values())
+
+
+def test_the_signature_table_is_the_one_list_of_kernels():
+    """``_build._SIGNATURES`` names every kernel: the launch counts have
+    exactly its keys, each is a C entry ``amtpu_<name>`` of csrc/ (each of
+    ``_SIZES`` an ``amtpu_<name>_scratch_floats``), and the wrappers of
+    kernels/receive.py launch exactly its kernels and ask for the scratch of
+    exactly ``_SIZES``'."""
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts()) == set(_build._SIGNATURES)
+    source = "".join(p.read_text() for p in _build._sources())
+    for name in _build._SIGNATURES:
+        assert f"amtpu_{name}(" in source, name
+    for name in _build._SIZES:
+        assert name in _build._SIGNATURES and f"amtpu_{name}_scratch_floats(" in source, name
+    called = {"launch": set(), "scratch_floats": set()}
+    for node in ast.walk(ast.parse(Path(receive.__file__).read_text())):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id in called:
+            called[node.func.id].add(node.args[0].value)
+    assert called == {"launch": set(_build._SIGNATURES), "scratch_floats": set(_build._SIZES)}
+
+
+# the layers above kernels/, which kernels/ must not import
+ABOVE_KERNELS = ("parallel", "runtime", "decoder", "api", "arq", "diag")
+
+
+def _imports_above_kernels(source: str, name: str) -> list[str]:
+    """The imports of one source file under kernels/, at module level or
+    inside a function, that reach a layer above it."""
+    found = []
+    for node in ast.walk(ast.parse(source, name)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(["audio_modem_tpu_torch", "kernels"][: max(0, 3 - node.level)]) if node.level else ""
+            module = ".".join(p for p in (base, node.module or "") if p)
+            names = [module] + [f"{module}.{a.name}" for a in node.names]
+        else:
+            continue
+        found += [f"{name}:{node.lineno} {n}" for n in names
+                  if any(n == f"audio_modem_tpu_torch.{m}" or n.startswith(f"audio_modem_tpu_torch.{m}.")
+                         for m in ABOVE_KERNELS)]
+    return found
+
+
+def test_kernels_import_nothing_above_them():
+    """No module under kernels/ imports parallel, runtime, decoder, api, arq
+    or diag, at module level or inside a function; the check itself sees
+    each form of such an import."""
+    files = sorted((PACKAGE / "kernels").glob("*.py"))
+    assert len(files) == 3
+    assert [hit for f in files for hit in _imports_above_kernels(f.read_text(), f.name)] == []
+    seen = {
+        "def f():\n    from audio_modem_tpu_torch.parallel import batch\n": "audio_modem_tpu_torch.parallel",
+        "from audio_modem_tpu_torch import decoder\n": "audio_modem_tpu_torch.decoder",
+        "import audio_modem_tpu_torch.runtime.receiver\n": "audio_modem_tpu_torch.runtime.receiver",
+        "from ..arq import RequestFrame\n": "audio_modem_tpu_torch.arq",
+        "from .. import api, phy\n": "audio_modem_tpu_torch.api",
     }
+    for source, module in seen.items():
+        assert [h.split()[-1] for h in _imports_above_kernels(source, "x.py")][:1] == [module], source
+    assert _imports_above_kernels("from .. import phy, sync\nfrom . import _build\n", "x.py") == []
 
 
 def test_mixed_devices_raise():

@@ -21,10 +21,7 @@ def test_two_processes_on_gloo():
         assert r["world"] == 2 and r["backend"] == "gloo" and r["devices"] == ["cpu", "cpu"]
         assert r["ber"] == 0.0 and r["ber_local"] == 0.0
         assert r["detected"] == [1] * 8  # 2 streams x 2 devices x 2 processes, all-gathered
-        assert r["launches"] == {
-            "decode_fused": 0, "decode_predicted": 0, "decode_chunks_fused": 0, "stream_demod": 0, "decode_tail": 0,
-            "stream_scan": 0,
-        }
+        assert r["launches"] and not any(r["launches"].values())
         assert not r["jax_loaded"]
 
 

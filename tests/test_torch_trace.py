@@ -14,8 +14,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from audio_modem_tpu_torch import api, decoder, framing
+from audio_modem_tpu_torch import api, decoder, diag, framing, kernels
 from audio_modem_tpu_torch.configs import MODES
+from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
 from audio_modem_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
@@ -103,13 +104,13 @@ def test_off_records_and_counts_nothing(recorder):
 
 def test_a_clean_decode_gives_the_span_tree(recorder, monkeypatch):
     reads = []
-    real = decoder._read
+    real = decoder.read_back
 
     def counted(what, t, cast=None):
         reads.append(what)
         return real(what, t, cast)
 
-    monkeypatch.setattr(decoder, "_read", counted)
+    monkeypatch.setattr(decoder, "read_back", counted)
     sig, mode = _case("clean")
     (result, _), spans, counters = _decode_traced(sig, mode)
     assert result.crc_valid
@@ -333,3 +334,37 @@ def test_a_chunked_decode_counts_what_its_spans_show(recorder):
 def test_a_chunked_decode_records_nothing_with_the_recorder_off(recorder):
     api.decode_chunked(_chunked_transfer(), "QPSK", device="cpu")
     assert trace.drain() == ([], {})
+
+
+def test_a_loopback_analysis_counts_its_pair_read(recorder, monkeypatch):
+    """``diag.analyze_loopback`` reads its refine's index and metric back in
+    one copy through ``kernels.read_pair``, the helper the chunked
+    receiver's refine reads through: with the recorder on that read is one
+    ``host_syncs`` and one ``decode.sync`` span (``what`` "refine"), and the
+    report is the one made with the recorder off."""
+    assert diag.read_pair is kernels.read_pair is runtime_receiver.read_pair
+    pairs = []
+
+    def counted(what, index, metric):
+        pairs.append((what, kernels.read_pair(what, index, metric)))
+        return pairs[-1][1]
+
+    monkeypatch.setattr(diag, "read_pair", counted)
+    sig, _ = diag.generate_test_signal(MODES["QPSK"], device="cpu")
+    rec = _awgn(np.concatenate([np.zeros(5000, np.float32), sig.numpy(), np.zeros(3000, np.float32)]), 25.0, 8)
+    off = diag.analyze_loopback(rec, MODES["QPSK"], device="cpu")
+    assert trace.drain() == ([], {})
+    trace.enable()
+    try:
+        on = diag.analyze_loopback(rec, MODES["QPSK"], device="cpu")
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    assert counters == {"host_syncs": 1}
+    assert [s.attrs for s in spans if s.name == "decode.sync"] == [{"what": "refine"}]
+    assert [what for what, _ in pairs] == ["refine", "refine"] and pairs[0] == pairs[1]
+    start, metric = pairs[0][1]
+    assert isinstance(start, int) and start == 5000 + MODES["QPSK"].profile.silence_pre_legacy()
+    assert on.detected and on.correlation == max(0.0, metric) > 0.5
+    for field in dataclasses.fields(off):
+        assert np.array_equal(getattr(on, field.name), getattr(off, field.name)), field.name

@@ -372,7 +372,7 @@ def main() -> None:
     dft_yardsticks("the 64 QPSK frames", aligned[:, 3 * sym :], mode, n_sym, reps)
 
     mode2, _, noisy2 = chip_smoke.config2_signal(dev)
-    padded2 = decoder._padded(noisy2)
+    padded2 = decoder.pad_to_bucket(noisy2)
     ms2 = decoder._max_symbols(padded2.shape[0], mode2)
     args2 = (padded2[None], torch.tensor([noisy2.shape[0]], dtype=torch.int32, device=dev),
              torch.zeros(1, dtype=torch.int32, device=dev), mode2, ms2)

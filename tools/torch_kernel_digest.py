@@ -75,7 +75,7 @@ def main() -> None:
         show(f"phase 8 {name} frames decode_chunks_fused", receive.decode_chunks_fused(fr, m, ns))
         show(f"phase 8 {name} frames decode_chunks_fused_stream", receive.decode_chunks_fused_stream(fr, m, ns))
     mode2, _, noisy2 = chip_smoke.config2_signal(dev)
-    padded2 = decoder._padded(noisy2)
+    padded2 = decoder.pad_to_bucket(noisy2)
     ms2 = decoder._max_symbols(padded2.shape[0], mode2)
     nv2 = torch.tensor([noisy2.shape[0]], dtype=torch.int32, device=dev)
     mp2 = torch.zeros(1, dtype=torch.int32, device=dev)
