@@ -2,13 +2,15 @@
 // the cadence-predicted slots of a turbo round (kernel C), the frame-aligned
 // chunk demod (kernel B), the streaming demod of a data region whose
 // channel is already known, and the one-shot decoder's tail after kernel A
-// (vote, byte pack and |H| into one row a stream), with a plain C interface
+// (vote, byte pack and |H| into one row a stream), and the chunked receiver's
+// scan and refine, with a plain C interface
 // for ctypes (see kernels/_build.py). A is a pipeline of six launches gridded
 // over (tiles or symbol tiles, streams); C five (A's first two, a slot chain a
 // stream, the demod over (symbol tiles, slots, streams), the pack); B is two
 // launches (peak; CE and demod) gridded over (chunks or symbol tiles,
 // frames); the streaming demod one CTA per (symbol tile, stream); the tail
-// one launch over (byte tiles, streams).
+// one launch over (byte tiles, streams); the scan one CTA a window, the
+// refine one CTA a region.
 //
 // All four end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits). A, B and the streaming
@@ -1459,6 +1461,124 @@ stream_scan_kernel(const float* __restrict__ windows, int nv, int W, float min_e
   }
 }
 
+// ---- the chunked receiver's refine: one launch a region ----
+//
+// Replaces no TPU kernel: the JAX package's streaming refine is plain jnp.
+// It runs sync.refine_xcorr on one window of W raw samples, valid up to nv
+// (samples at or past it read as 0), around coarse index c, in one CTA:
+// the region [lo, lo + n_off + sym - 1) and preamble 1 staged in shared
+// memory once, then for every offset d in [lo, hi] = [max(c - 3cp, 0),
+// min(nv - sym, c + 3cp)] corr / sqrt(energy * t_energy), -inf where that
+// root is <= 1e-3; the first d of the best metric, c where none is finite.
+// out = (start relative to the window, the best metric's float32 bits): the
+// host reads it in one copy.
+// Each offset's corr and energy are kRefineSegs partial fmaf chains over
+// blocked segments of sym / kRefineSegs taps, added pairwise in the fixed
+// order ((0+1)+(2+3))+((4+5)+(6+7)); the metric goes through _rn
+// intrinsics. A quad of offsets is 8 lanes of one warp, a lane a segment,
+// register-blocked as refine() is (4 offsets a thread, float4 loads), and
+// the pairwise sum is three xor shuffles inside the 8 lanes. The split is
+// for precision as much as for threads: one chain of 576 taps, as refine()
+// sums, reads up to 1.55e-6 from float64 on QPSK regions at 30 dB, against
+// 2.8e-7 for 8 chains in an exact emulation on the CPU (4,000 regions), and
+// the chunked receiver's benchmark holds the metric to 2e-6.
+// (offset quad, segment) pairs outnumber the threads at cp 256 (385 quads),
+// so the threads loop over them; the per-thread best keeps its first d.
+
+constexpr int kRefineSegs = 8;                         // partial chains an offset
+constexpr int kThreadsStreamRefine = 1024;
+constexpr int kRefineSpan = 6 * kMaxCp + kMaxSym + 12;  // region at cp 256, alignment, the reads' reach past it
+static_assert(kThreadsStreamRefine % 32 == 0 && 32 % kRefineSegs == 0, "a quad's segments are lanes of one warp");
+
+__global__ void __launch_bounds__(kThreadsStreamRefine)
+stream_refine_kernel(const float* __restrict__ window, int W, int nv, int c, const float* __restrict__ pre1,
+                     float t_energy, int sym, int cp, int* __restrict__ out) {
+  __shared__ __align__(16) float buf[kRefineSpan];
+  __shared__ __align__(16) float tmpl[kMaxSym];
+  __shared__ float redf[33];
+  __shared__ int redi[33];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int radius = 3 * cp, n_off = 2 * radius + 1;
+  const int lo = max(c - radius, 0), hi = min(nv - sym, c + radius), lim = min(nv, W);
+  // buf[4 q] is window[lo - a + 4 q], 16-byte aligned in both: a quad that
+  // lies whole inside the valid samples comes by one 16-byte cp.async
+  const int a = (int)(((reinterpret_cast<uintptr_t>(window) >> 2) + (unsigned)lo) & 3), base = lo - a;
+  const int n_stage = (a + n_off + sym + 7 + 3) >> 2;
+  for (int q = tid; q < n_stage; q += nt) {
+    const int pos = base + 4 * q;
+    float* dst = buf + 4 * q;
+    if (pos >= 0 && pos + 3 < lim) {
+      cp_async16(dst, window + pos);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (pos + e >= 0 && pos + e < lim)
+          cp_async4(dst + e, window + pos + e);
+        else
+          dst[e] = 0.0f;
+      }
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i < sym; i += nt) tmpl[i] = pre1[i];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // quad q owns offsets 4q - a .. 4q - a + 3; lane seg its taps [seg S, seg S + S)
+  const int seg = tid % kRefineSegs, s4 = sym / (4 * kRefineSegs);
+  const int pairs = ((n_off + a + 3) >> 2) * kRefineSegs;
+  float best = -INFINITY;
+  int dbest = INT_MAX;
+  for (int p0 = 0; p0 < pairs; p0 += nt) {  // uniform trip count: every lane reaches the shuffles
+    const int p = p0 + tid, q = p / kRefineSegs;
+    float corr[4] = {0.0f, 0.0f, 0.0f, 0.0f}, e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < pairs) {
+      const float4* __restrict__ w = reinterpret_cast<const float4*>(buf) + q + seg * s4;
+      const float4* __restrict__ t4 = reinterpret_cast<const float4*>(tmpl) + seg * s4;
+      float4 cur = w[0], nxt = w[1];
+#pragma unroll 2
+      for (int j4 = 0; j4 < s4; ++j4) {
+        const float4 nxt2 = w[j4 + 2], t = t4[j4];
+        const float v[8] = {cur.x, cur.y, cur.z, cur.w, nxt.x, nxt.y, nxt.z, nxt.w};
+        const float tt[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            corr[r] = fmaf(v[r + u], tt[u], corr[r]);
+            e[r] = fmaf(v[r + u], v[r + u], e[r]);
+          }
+        cur = nxt, nxt = nxt2;
+      }
+    }
+#pragma unroll
+    for (int s = 1; s < kRefineSegs; s <<= 1)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        corr[r] = __fadd_rn(corr[r], __shfl_xor_sync(0xffffffffu, corr[r], s));
+        e[r] = __fadd_rn(e[r], __shfl_xor_sync(0xffffffffu, e[r], s));
+      }
+    const int o = 4 * q - a + seg;  // lanes 0-3 of a quad take its offsets
+    if (p < pairs && seg < 4 && o >= 0 && o < n_off && lo + o <= hi) {
+      float cs = corr[0], es = e[0];
+#pragma unroll
+      for (int r = 1; r < 4; ++r)
+        if (seg == r) cs = corr[r], es = e[r];
+      const float den = __fsqrt_rn(__fmul_rn(es, t_energy));
+      if (den > kXcorrMinDenom) {
+        const float m = __fdiv_rn(cs, den);
+        if (m > best) best = m, dbest = lo + o;  // a thread's offsets grow pass by pass
+      }
+    }
+  }
+  const float fm = block_max(best, redf);
+  const int d = block_min(best == fm && isfinite(fm) ? dbest : INT_MAX, redi);
+  if (tid == 0) {
+    out[0] = isfinite(fm) ? d : c;
+    out[1] = __float_as_int(fm);
+  }
+}
+
 // ---- kernel B: frame-aligned chunk demod, a pipeline of two launches ----
 //
 // Replaces audio_modem_tpu/kernels/receive.py::_chunk_kernel (entry
@@ -1770,6 +1890,19 @@ int amtpu_stream_scan(const float* windows, int n_valid, int B, int W, float min
       n_pos > kThreadsStreamScan || (n_pos + 2 * kHalfBlocks - 1) * kStride > W)
     return (int)cudaErrorInvalidValue;
   stream_scan_kernel<<<B, kThreadsStreamScan, 0, stream>>>(windows, n_valid, W, min_energy, half, n_pos, out);
+  return (int)cudaGetLastError();
+}
+
+// The chunked receiver's refine on ``stream`` (stream_refine_kernel): one
+// window of W samples valid up to n_valid, coarse index 0 <= c < W, preamble 1
+// ``pre1`` [sym] of energy t_energy, into ``out`` int [2].
+int amtpu_stream_refine(const float* window, int W, int n_valid, int coarse, const float* pre1, float t_energy,
+                        int sym, int cp, int* out, cudaStream_t stream) {
+  if (W < 1 || n_valid < 0 || n_valid > W || coarse < 0 || coarse >= W || sym < 1 || sym > kMaxSym ||
+      sym % (4 * kRefineSegs) != 0 || cp < 0 || cp > kMaxCp)
+    return (int)cudaErrorInvalidValue;
+  stream_refine_kernel<<<1, kThreadsStreamRefine, 0, stream>>>(window, W, n_valid, coarse, pre1, t_energy, sym, cp,
+                                                               out);
   return (int)cudaGetLastError();
 }
 

@@ -74,8 +74,16 @@ def read_back(what: str, t: torch.Tensor, cast=None):
 
 
 def read_pair(what: str, index: torch.Tensor, metric: torch.Tensor) -> tuple[int, float]:
-    """A 0-dim index and its 0-dim metric in one ``read_back``: one float64
-    copy, which holds both exactly."""
+    """A 0-dim index and its 0-dim metric in one ``read_back``. Where they
+    are the two words of one int32 row (the index, then the float32
+    metric's bits, as ``receive.stream_refine`` writes them), one 8-byte
+    copy of that row; otherwise one float64 copy of both, which holds both
+    exactly."""
+    if (index.dtype == torch.int32 and metric.dtype == torch.float32 and index.dim() == metric.dim() == 0
+            and index.untyped_storage().data_ptr() == metric.untyped_storage().data_ptr()
+            and metric.storage_offset() == index.storage_offset() + 1):
+        row = read_back(what, index.as_strided((2,), (1,)))
+        return int(row[0]), float(row[1:].view(np.float32)[0])
     i, m = read_back(what, torch.stack([index.to(torch.float64), metric.to(torch.float64)]), torch.Tensor.tolist)
     return int(i), m
 

@@ -94,6 +94,12 @@ _SIGNATURES = {
         _P,                          # out: rows
         _P,                          # stream
     ],
+    "stream_refine": [
+        _P, _I, _I, _I,              # window, W, n_valid, coarse
+        _P, _F, _I, _I,              # pre1, t_energy, sym, cp
+        _P,                          # out: row
+        _P,                          # stream
+    ],
 }
 
 # amtpu_<name>_scratch_floats: the scratch a kernel needs, in floats.

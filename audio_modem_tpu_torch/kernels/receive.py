@@ -26,7 +26,9 @@ gathers its head and |H| into one row the host reads in one copy; kernel C's
 pack votes through the same device function. ``stream_scan``
 (``stream_scan_kernel``) is the chunked receiver's coarse scan of a window,
 one CTA a row, into one row of (coarse, best metric) the host reads in one
-copy. A, B and the streaming demod end in one
+copy; ``stream_refine`` (``stream_refine_kernel``) its xcorr refine of one
+region, one CTA, into one row of (start, best metric). A, B and the
+streaming demod end in one
 tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
@@ -303,6 +305,49 @@ def stream_scan(
     launch(
         "stream_scan", windows.device,
         windows.data_ptr(), int(n_valid), b, w, float(min_energy), profile.fft_size // 2, n_pos, out.data_ptr(),
+    )
+    return out
+
+
+def stream_refine_reference(window: torch.Tensor, coarse_rel: int, n_valid: int, profile: OfdmProfile) -> torch.Tensor:
+    """Plain version of ``stream_refine``: ``sync.refine_xcorr`` of the
+    window zero-padded past ``n_valid``, its two outputs packed into one
+    int32 row."""
+    dev = window.device
+    x = torch.cat([window[:n_valid], window.new_zeros(window.shape[0] - n_valid)])
+    start, best = sync.refine_xcorr(
+        x[None], torch.tensor([coarse_rel], device=dev), profile, torch.tensor([n_valid], device=dev))
+    return torch.stack([start[0], best[0].view(torch.int32)])
+
+
+def stream_refine(window: torch.Tensor, coarse_rel: int, n_valid: int, profile: OfdmProfile) -> torch.Tensor:
+    """The chunked receiver's xcorr refine: one window [W] of raw samples,
+    valid up to ``n_valid``, around ``0 <= coarse_rel < W`` -> a fresh row,
+    int32 [2] on the window's device: the refined start relative to the
+    window and the best metric's float32 bits, as
+    ``sync.refine_xcorr`` at one region gives them (ties take the first
+    offset; the start is ``coarse_rel`` and the metric -inf where no offset
+    is finite). Samples at or past ``n_valid`` read as 0, so what lies past
+    them changes no result. The kernel sums each offset as 8 blocked
+    partial chains, so its metric rounds apart from the plain matmul's at
+    the 1e-7 level. One call is one launch and allocates only its row."""
+    if not runs_on_kernel(window):
+        return stream_refine_reference(window, coarse_rel, n_valid, profile)
+    if window.dim() != 1:
+        raise ValueError(f"window: need [W], got {tuple(window.shape)}")
+    w = window.shape[0]
+    _check(window, "window", torch.float32, (w,))
+    if not (0 <= coarse_rel < w and 0 <= n_valid <= w):
+        raise ValueError(f"need 0 <= coarse_rel < W and 0 <= n_valid <= W, got {coarse_rel}, {n_valid} of {w}")
+    if profile.symbol_len > 768 or profile.cp_len > 256 or profile.symbol_len % 32:
+        raise ValueError("the kernel's shared region holds cp <= 256 and sym <= 768, a multiple of 32")
+    dev = window.device
+    tabs = profile_tables(profile, dev)
+    out = torch.empty(2, dtype=torch.int32, device=dev)
+    launch(
+        "stream_refine", dev,
+        window.data_ptr(), w, int(n_valid), int(coarse_rel), tabs.pre1.data_ptr(), tabs.t_energy,
+        profile.symbol_len, profile.cp_len, out.data_ptr(),
     )
     return out
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 
-from audio_modem_tpu_torch.configs import ModemMode
+from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 
 # Published peaks at 700 W (NVIDIA's data sheet, SXM part): HBM3 bytes/s and
@@ -100,6 +100,14 @@ def work_stream_scan(b: int, w: int, n_pos: int) -> tuple[float, float]:
     three 16-block window sums and the metric (a product, a product, a
     square and a division) a position."""
     return 4.0 * b * w + 8.0 * b, 4.0 * b * w + b * n_pos * (3 * 15 + 4.0)
+
+
+def work_stream_refine(profile: OfdmProfile) -> tuple[float, float]:
+    """(bytes, flops) of the chunked receiver's refine at one region: the
+    region (6 cp + sym samples) and preamble 1 in and an 8-byte row out,
+    once; two FMAs (corr and energy) a tap of each of the 6 cp + 1 offsets."""
+    n_off, sym = 6 * profile.cp_len + 1, profile.symbol_len
+    return 4.0 * (n_off + sym - 1) + 4.0 * sym + 8.0, 4.0 * n_off * sym
 
 
 def share(work: tuple[float, float], n_samples: int, msps: float, peaks: tuple[float, float] | None) -> dict:

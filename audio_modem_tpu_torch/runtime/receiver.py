@@ -5,7 +5,8 @@ Per audio block: EMA DC removal -> ring write -> state dispatch:
   IDLE               incremental preamble scan over newly-covered positions
                      (strided Schmidl-Cox scan with first-peak commit on the
                      device: one ``stream_scan`` launch a window)
-  PREAMBLE_DETECTED  fine xcorr refinement around the candidate (device);
+  PREAMBLE_DETECTED  fine xcorr refinement around the candidate (on the
+                     device: one ``stream_refine`` launch a region);
                      false positive -> back to IDLE (app.js:879-884)
   COLLECTING_FRAME   wait until expectedFrameEnd worth of samples exist
   DEMODULATING       extract + per-frame peak normalization + decode, route
@@ -67,11 +68,15 @@ def _scan_window(window: torch.Tensor, n_valid: int, profile: OfdmProfile, out: 
     return receive.stream_scan(window[None], n_valid, profile, STREAM_MIN_ENERGY, out)
 
 
-def _refine_window(window: torch.Tensor, coarse_rel: torch.Tensor, n_valid: torch.Tensor, profile: OfdmProfile):
-    """Fine xcorr around ``coarse_rel`` in one zero-padded region [L]:
-    (start int32 relative to the region, best metric)."""
-    start, metric = sync.refine_xcorr(window[None], coarse_rel.reshape(1), profile, n_valid.reshape(1))
-    return start[0], metric[0]
+def _refine_window(window: torch.Tensor, coarse_rel: int, n_valid: int, profile: OfdmProfile):
+    """Fine xcorr around ``coarse_rel`` in the first ``n_valid`` samples of
+    ``window`` [SCAN_BUCKET] (what lies past them reads as 0): (start int32
+    relative to the window, best metric float32), 0-dim tensors on the
+    window's device. They are the two words of the fresh row of one
+    ``receive.stream_refine``, so a metric kept from one refine keeps its
+    value after the next, and ``kernels.read_pair`` reads both in one copy."""
+    row = receive.stream_refine(window, coarse_rel, n_valid, profile)
+    return row[0], row[1].view(torch.float32)
 
 
 class StreamingReceiver:
@@ -110,15 +115,16 @@ class StreamingReceiver:
         self.dc_mean = 0.0
         self._half = p.fft_size // 2
 
-        # The scan's buffers, reused window after window: a staging block on
-        # the host (pinned where the scan runs on a card, so its upload does
-        # not wait), the window on the device and the row read back. A
-        # window overwrites only its first samples: the scan reads no sample
-        # past its valid length.
+        # The scan's and the refine's buffers, reused call after call: a
+        # staging block on the host (pinned where they run on a card, so the
+        # upload does not wait), the window on the device and the scan's row
+        # read back. A call overwrites only its first samples: neither kernel
+        # reads a sample past its valid length, and each call's read back
+        # waits for its upload, so the block is free for the next call.
         on_card = self.device.type == "cuda"
-        self._scan_host = torch.zeros(SCAN_BUCKET, dtype=torch.float32, pin_memory=on_card)
-        self._scan_dev = (
-            torch.zeros(SCAN_BUCKET, dtype=torch.float32, device=self.device) if on_card else self._scan_host
+        self._stage_host = torch.zeros(SCAN_BUCKET, dtype=torch.float32, pin_memory=on_card)
+        self._stage_dev = (
+            torch.zeros(SCAN_BUCKET, dtype=torch.float32, device=self.device) if on_card else self._stage_host
         )
         self._scan_row = torch.empty((1, 2), dtype=torch.int32, device=self.device)
 
@@ -148,6 +154,16 @@ class StreamingReceiver:
             elif self.state is RecvState.COLLECTING_FRAME:
                 progressed = self._check_complete()
 
+    def _stage(self, samples: np.ndarray) -> torch.Tensor:
+        """``samples`` (at most ``SCAN_BUCKET``) into the first samples of the
+        reused device window, through the pinned staging block: one
+        non-blocking upload. Returns the window."""
+        n = len(samples)
+        self._stage_host.numpy()[:n] = samples
+        if self._stage_dev is not self._stage_host:
+            self._stage_dev[:n].copy_(self._stage_host[:n], non_blocking=True)
+        return self._stage_dev
+
     # ---- IDLE: incremental scan ----
 
     def _scan(self) -> bool:
@@ -169,12 +185,9 @@ class StreamingReceiver:
                 if window is None:
                     self.scan_pos = max(self.scan_pos, self.ring.total_written - self.ring.capacity)
                     continue
-                self._scan_host.numpy()[:win_len] = window
-                if self._scan_dev is not self._scan_host:
-                    self._scan_dev[:win_len].copy_(self._scan_host[:win_len], non_blocking=True)
                 windows += 1
                 trace.count("scan_windows")
-                row = _scan_window(self._scan_dev, win_len, p, self._scan_row)
+                row = _scan_window(self._stage(window), win_len, p, self._scan_row)
                 # the scan's one copy back to the host; it also waits for the
                 # upload, so the staging block is free for the next window
                 idx = int(read_back("scan", row)[0, 0])
@@ -210,11 +223,8 @@ class StreamingReceiver:
                 sp.set(accepted=False)
                 self._reset_to_idle()
                 return True
-            padded = np.zeros(region_len + plen, np.float32)
-            padded[: len(region)] = region
-            params = torch.tensor([self.preamble_pos - lo, len(region)], dtype=torch.int32).to(self.device)
             best_rel, metric = read_pair(
-                "refine", *_refine_window(torch.from_numpy(padded).to(self.device), params[0], params[1], p))
+                "refine", *_refine_window(self._stage(region), self.preamble_pos - lo, len(region), p))
             accepted = metric >= sync.XCORR_THRESHOLD
             sp.set(accepted=accepted)
             if not accepted:
@@ -222,7 +232,7 @@ class StreamingReceiver:
                 trace.count("false_peaks")
                 self.state = RecvState.IDLE
                 return True
-        # refine_xcorr returns an index relative to its input window
+        # the refine returns an index relative to its window
         self.preamble_pos = lo + best_rel
         max_payload = (
             (self.assembler.chunk_size or 4096) + 11 if self.meta_received else PRE_META_MAX_PAYLOAD

@@ -71,11 +71,15 @@ Phases, one line each:
      through api.encode_chunked on the card, brought to the host as audio,
      through api.decode_chunked(device="cuda") twice: complete, 512 chunks,
      none missing, no CRC error, exact bytes, stream_demod launched once per
-     frame and stream_scan once per scan window; wall time, Msamples/s,
+     frame, stream_scan once per scan window and stream_refine once per
+     refine; wall time, Msamples/s,
      multiple of real time, and the host's ms per scan, refine and
      frame-decode call (second run); then stream_demod alone at one chunk
-     frame's shape, and stream_scan alone on one window around a preamble
-     (bit for bit its plain version; both timed, the scan beside its bound)
+     frame's shape, stream_scan alone on one window around a preamble
+     (bit for bit its plain version; both timed, the scan beside its bound),
+     and stream_refine on the first data frame's region with the preamble
+     at every offset of its +-3 cp reach (start equal to the plain
+     version's, fine metric within 1e-6; timed beside its bound)
  13. the same at 768-sample symbols: an 8 KiB file in BPSK-NARROW behind
      20,000 samples of seeded noise at amplitude 1e-3; exact bytes
  14. persist and resume: the metadata frame and the first 256 data frames
@@ -405,8 +409,9 @@ def stage_split(timer, wall_s: float) -> dict:
 def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: int) -> tuple[dict, str]:
     """``api.decode_chunked`` of ``signal`` on ``dev``, ``runs`` times, launch
     counts from zero each time: the file must come back complete and exact
-    with ``stream_demod`` launched at least once per frame and
-    ``stream_scan`` once per scan window. Returns (``launch_counts()`` of
+    with ``stream_demod`` launched at least once per frame,
+    ``stream_scan`` once per scan window and ``stream_refine`` once per
+    refine. Returns (``launch_counts()`` of
     the last run, a report line)."""
     from audio_modem_tpu_torch import MODES, api
     from audio_modem_tpu_torch.configs import SAMPLE_RATE
@@ -435,6 +440,9 @@ def chunked_receive(label: str, data: bytes, mode_name: str, signal, dev, runs: 
         if counts["stream_scan"] != timer.calls["scan_call"]:
             fail(f"{label}: {timer.calls['scan_call']} scan windows but stream_scan launched "
                  f"{counts['stream_scan']} times")
+        if counts["stream_refine"] != timer.calls["refine_call"]:
+            fail(f"{label}: {timer.calls['refine_call']} refines but stream_refine launched "
+                 f"{counts['stream_refine']} times")
     wall = walls[-1]
     split = stage_split(timer, wall)
     n = len(signal)
@@ -2098,7 +2106,7 @@ def main() -> None:
     from audio_modem_tpu_torch.parallel import batch, multi_receiver
     from audio_modem_tpu_torch.roofline import (bound_ms, card_peaks, work_chunks, work_decode_fused,
                                                 work_decode_predicted, work_decode_tail, work_stream_demod,
-                                                work_stream_scan)
+                                                work_stream_refine, work_stream_scan)
 
     assert_full_fp32()
     dev = torch.device("cuda", 0)
@@ -2441,6 +2449,37 @@ def main() -> None:
           f"plain {plain_ms_sc:.4f} ms ({psc1:.4f}, {psc2:.4f}); device time "
           f"{ms_sc or 0.0:.5f} ms ({split_sc or 'no profiler time'}), bound {bound_sc[0]:.6f} ms ({bound_sc[1]}), "
           f"roofline share {bound_sc[0] / ms_sc if ms_sc else 0.0:.2%}", flush=True)
+    # stream_refine as the receiver calls it: the region of the first data frame's preamble staged in a
+    # full window behind the stale samples that follow it, the preamble at every offset of the +-3 cp reach
+    radius12 = 3 * m12.profile.cp_len
+    pos12, nv_rf = len(frames12[0]) + pre12, 2 * radius12 + m12.profile.symbol_len
+    sig_rf = torch.from_numpy(np.ascontiguousarray(sig12)).to(dev)
+    err_rf = 0.0
+    for k in range(-radius12, radius12 + 1):
+        w_rf = sig_rf[pos12 - radius12 - k :][:SCAN_BUCKET]
+        row_rf = receive.stream_refine(w_rf, radius12, nv_rf, m12.profile).cpu()
+        ref_rf = receive.stream_refine_reference(w_rf, radius12, nv_rf, m12.profile).cpu()
+        if int(row_rf[0]) != int(ref_rf[0]) or int(row_rf[0]) != radius12 + k:
+            fail(f"stream_refine gave {row_rf.tolist()} with the preamble {k} past the coarse index, its plain "
+                 f"version {ref_rf.tolist()}")
+        err_rf = max(err_rf, abs(float(row_rf[1:].view(torch.float32)) - float(ref_rf[1:].view(torch.float32))))
+    if err_rf > 1e-6:
+        fail(f"stream_refine's fine metric lies {err_rf:.3e} from its plain version's (limit 1e-6)")
+    w_rf = sig_rf[pos12 - radius12 :][:SCAN_BUCKET]
+    run_rf = lambda: receive.stream_refine(w_rf, radius12, nv_rf, m12.profile)  # noqa: E731
+    plain_rf = lambda: receive.stream_refine_reference(w_rf, radius12, nv_rf, m12.profile)  # noqa: E731
+    prf1, krf1, krf2, prf2 = time_ms(plain_rf), time_ms(run_rf), time_ms(run_rf), time_ms(plain_rf)
+    plain_ms_rf = statistics.median([prf1, prf2])
+    split_rf = launch_split(run_rf, reps=20)
+    ms_rf = sum(ms for _, ms in split_rf) or None
+    bound_rf = bound_ms(*work_stream_refine(m12.profile), peaks)
+    print(f"phase 12 stream_refine on one region ({nv_rf} samples in a {SCAN_BUCKET}-sample window, B = 1) {card}: "
+          f"{2 * radius12 + 1} preamble offsets, starts equal, widest fine metric gap {err_rf:.3e}; between events "
+          f"with the host's launch {statistics.median([krf1, krf2]):.4f} ms ({krf1:.4f}, {krf2:.4f}) vs plain "
+          f"{plain_ms_rf:.4f} ms ({prf1:.4f}, {prf2:.4f}); device time {ms_rf or 0.0:.5f} ms "
+          f"({split_rf or 'no profiler time'}), bound {bound_rf[0]:.6f} ms ({bound_rf[1]}), roofline share "
+          f"{bound_rf[0] / ms_rf if ms_rf else 0.0:.2%}", flush=True)
+    del sig_rf
 
     # 13. the same at a second symbol length, behind noise
     data13 = np.random.default_rng(SEED + 13).bytes(8 << 10)
@@ -2575,6 +2614,11 @@ def main() -> None:
          "launches": counts12["stream_scan"] + counts13["stream_scan"],
          "max_abs_err": 0.0, "ms": ms_sc, "plain_ms": plain_ms_sc,
          "bound_ms": bound_sc[0], "bound_by": bound_sc[1], "library_ms": None},
+        {"name": "stream_refine", "route": "cuda", "source": source,
+         "replaces": "audio_modem_tpu/runtime/receiver.py:54-55 (plain jnp)",
+         "launches": counts12["stream_refine"] + counts13["stream_refine"],
+         "max_abs_err": err_rf, "ms": ms_rf, "plain_ms": plain_ms_rf,
+         "bound_ms": bound_rf[0], "bound_by": bound_rf[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """Kernels A, B and C, the streaming demod and the chunked receiver's scan
-on the card against their plain versions, at small shapes; kernel C in both branches of the turbo
+and refine on the card against their plain versions, at small shapes; kernel C in both branches of the turbo
 round, on a zeroed slot, clamped predictions and K = 1, and the card's
 round without a plain predicted slot; kernel A's pipeline also at B = 1, 3 and 64 on
 windows that put its tiles' edges to the test; kernel B's pipeline and the
@@ -26,6 +26,7 @@ from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.parallel import batch
 from audio_modem_tpu_torch.runtime.receiver import STREAM_MIN_ENERGY
 from audio_modem_tpu_torch.tables import profile_tables
+from test_torch_stream_refine import REFINE_CASES, offset_window, refine_case, zero_padded
 from test_torch_stream_scan import SCAN_CASES, scan_case
 from test_torch_trace import _chunked_transfer
 
@@ -308,6 +309,14 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
         receive.stream_scan(sig, 8192, p, STREAM_MIN_ENERGY, row2.float())
     with pytest.raises(ValueError):  # an out row on the CPU
         receive.stream_scan(sig, 8192, p, STREAM_MIN_ENERGY, row2.cpu())
+    with pytest.raises(ValueError):  # a [1, W] window, not [W]
+        receive.stream_refine(sig[:1], 192, 960, p)
+    with pytest.raises(ValueError):  # float64 samples
+        receive.stream_refine(sig[0].double(), 192, 960, p)
+    with pytest.raises(ValueError):  # a coarse index past the window
+        receive.stream_refine(sig[0], 8192, 960, p)
+    with pytest.raises(ValueError):  # a valid length past the window
+        receive.stream_refine(sig[0], 192, 8193, p)
 
 
 def _predicted_windows(name: str, chunk: int, n: int, k: int, noise: float = 0.01, zero: int | None = None,
@@ -580,6 +589,109 @@ def test_chunked_decode_scans_every_window_on_the_kernel(cuda_device):
     reads = [s.attrs["what"] for s in spans if s.name == "decode.sync"]
     assert reads.count("scan") == counters["scan_windows"]
     assert dataclasses.asdict(got) == dataclasses.asdict(want) and got.complete and got.crc_errors == 0
+
+
+REFINE_TOL = 1e-6  # the fine metric: 8 blocked chains an offset against the plain matmul
+
+
+def _refine_pair(x: np.ndarray, c: int, nv: int, p, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """``stream_refine`` (one launch) and its plain version on the same card
+    window: two int32 rows [2] on the host."""
+    win = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    before = launch_counts()["stream_refine"]
+    row = receive.stream_refine(win, c, nv, p)
+    assert launch_counts()["stream_refine"] == before + 1
+    return row.cpu(), receive.stream_refine_reference(win, c, nv, p).cpu()
+
+
+def _metric(row: torch.Tensor) -> float:
+    return row[1:].view(torch.float32).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REFINE_CASES)
+@pytest.mark.parametrize("name", PROFILE_MODES)
+def test_stream_refine_matches_plain(cuda_device, name, case):
+    """The chunked receiver's refine kernel against ``sync.refine_xcorr`` on
+    the same card window (tests/test_torch_stream_refine.py's cases): the
+    start equal, the fine metric within 1e-6 (equal where it is -inf); junk
+    past n_valid gives the zero-padded window's row bit for bit."""
+    p = MODES[name].profile
+    x, c, nv = refine_case(MODES[name], case)
+    got, want = _refine_pair(x, c, nv, p, cuda_device)
+    gap = abs(_metric(got) - _metric(want)) if case != "silence" else 0.0
+    print(f"stream_refine {name} {case}: start {got[0].item()}, metric {_metric(got)!r} vs {_metric(want)!r}, "
+          f"gap {gap:.3e}")
+    assert got[0].item() == want[0].item()
+    if case == "silence":
+        assert torch.equal(got, want) and got[0].item() == c and _metric(got) == float("-inf")
+    else:
+        assert gap <= REFINE_TOL and _metric(got) > 0.9
+    if case == "junk_past_n_valid":
+        zeroed = receive.stream_refine(zero_padded(x, nv).to(cuda_device), c, nv, p).cpu()
+        assert torch.equal(zeroed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROFILE_MODES)
+def test_stream_refine_at_every_offset(cuda_device, name):
+    """A seeded 30 dB preamble at every offset of the +-3 cp reach around the
+    coarse index, in the receiver's window: the kernel's start is the plain
+    version's and the preamble's, its fine metric within 1e-6; prints the
+    widest gap."""
+    mode = MODES[name]
+    radius = 3 * mode.profile.cp_len
+    widest = 0.0
+    for k in range(-radius, radius + 1):
+        x, c, nv = offset_window(mode, k, seed=5)
+        got, want = _refine_pair(x, c, nv, mode.profile, cuda_device)
+        assert got[0].item() == want[0].item() == c + k, (k, got.tolist(), want.tolist())
+        widest = max(widest, abs(_metric(got) - _metric(want)))
+    print(f"stream_refine {name}: {2 * radius + 1} offsets, widest fine metric gap {widest:.3e}")
+    assert widest <= REFINE_TOL
+
+
+@pytest.mark.cuda
+def test_chunked_decode_refines_every_region_on_the_kernel(cuda_device):
+    """The short chunked transfer of test_chunked_decode_scans_every_window_on_the_kernel
+    on the card with the recorder on: every refine (false peaks included) is
+    one ``stream_refine`` launch and one read."""
+    from audio_modem_tpu_torch.utils import trace
+
+    sig = _chunked_transfer()
+    api.decode_chunked(sig, "QPSK", device=cuda_device)  # builds and loads the kernels
+    trace.disable()
+    trace.drain()
+    reset_launch_counts()
+    trace.enable()
+    try:
+        got = api.decode_chunked(sig, "QPSK", device=cuda_device)
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    assert got.complete and counters["refines"] >= 4
+    assert launch_counts()["stream_refine"] == counters["refines"]
+    assert [s.attrs["what"] for s in spans if s.name == "decode.sync"].count("refine") == counters["refines"]
+
+
+@pytest.mark.cuda
+def test_refine_window_metric_survives_a_second_refine(cuda_device):
+    """A metric ``_refine_window`` returned keeps its value on the card after a
+    second refine in the same window (the benchmark keeps each refine's metric
+    as a device value and reads them all after a decode)."""
+    from audio_modem_tpu_torch.kernels import read_pair
+    from audio_modem_tpu_torch.runtime import receiver
+
+    p = MODES["QPSK"].profile
+    x, c, nv = refine_case(MODES["QPSK"], "junk_past_n_valid")
+    win = torch.from_numpy(x).to(cuda_device)
+    start, metric = receiver._refine_window(win, c, nv, p)
+    kept = read_pair("refine", start, metric)
+    win.zero_()
+    start2, metric2 = receiver._refine_window(win, c, nv, p)
+    assert metric.device == win.device and metric.dtype == torch.float32 and metric.dim() == 0
+    assert read_pair("refine", start2, metric2) == (c, float("-inf"))
+    assert (start.item(), metric.item()) == kept and kept[0] == c + 7 and kept[1] > 0.9
 
 
 @pytest.mark.cuda
