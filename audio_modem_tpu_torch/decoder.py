@@ -19,11 +19,13 @@ While the span recorder is on (``utils.trace``), and over every
 ``decode`` span with ``decode.*`` spans inside it: the upload, the bucket
 pad, each try of kernel A and its launch, each blocking read back to the
 host (``decode.sync``, through ``kernels.read_back``), each try's tail launch
-(``decode.tail``), a vote and pack on the host (``decode.vote_pack``: the
-tracked rung and the chunk-frame paths), the parse and each rung of the
-retry ladder; and the counters ``tries``, ``tail_rows``, ``host_syncs`` and
-``rungs``. With the recorder off every span is one shared no-op, and
-the root's and the reads' attributes are not computed.
+(``decode.tail``), each call of the timing tracker (``decode.track``, a
+``decode.track.pass`` span a pass inside it), a vote and pack on the host
+(``decode.vote_pack``: the tracked rung and the chunk-frame paths), the
+parse and each rung of the retry ladder; and the counters ``tries``,
+``tail_rows``, ``host_syncs``, ``rungs``, ``tracked`` and ``track_blocks``.
+With the recorder off every span is one shared no-op, and the root's and
+the reads' attributes are not computed.
 """
 
 from __future__ import annotations
@@ -153,20 +155,51 @@ def _soft_core(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, 
     return phy.demodulate_soft_bpsk(data, ch_re, ch_im, mode)
 
 
-def _tracked_core(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int):
+def _tracked_core(
+    signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int, n_valid_sym: "int | None"
+):
     """Timing-tracked demod of the data region (phy.demodulate_tracked), for
     long frames under clock drift. CE window and data timing both start
     TRACK_EARLY_BIAS samples into the CP: the refined start is exact only
     to +-1 sample, and a window that starts late leaks the next symbol's CP
-    into the DFT; the constant offset cancels between CE and data."""
+    into the DFT; the constant offset cancels between CE and data.
+    ``n_valid_sym`` keeps the symbols past the frame out of the timing
+    measurement (None measures every block's symbols, the pad's too). The
+    call is one ``decode.track`` span."""
     p = mode.profile
     sym = p.symbol_len
     eb = TRACK_EARLY_BIAS
-    sig = sync.preprocess(signal[None], torch.tensor([n_valid], device=signal.device))[0]
-    ext = torch.nn.functional.pad(sig, (0, 8192))
-    ce0 = min(max(start + 2 * sym - eb, 0), ext.shape[0] - sym)
-    ch_re, ch_im = phy.estimate_channel(ext[ce0 : ce0 + sym], p)
-    return phy.demodulate_tracked(ext, max(start + 3 * sym - eb, 0), n_sym, ch_re, ch_im, mode)
+    with _track_span(n_sym, phy.TRACK_BLOCK):
+        sig = sync.preprocess(signal[None], torch.tensor([n_valid], device=signal.device))[0]
+        ext = torch.nn.functional.pad(sig, (0, 8192))
+        ce0 = min(max(start + 2 * sym - eb, 0), ext.shape[0] - sym)
+        ch_re, ch_im = phy.estimate_channel(ext[ce0 : ce0 + sym], p)
+        return phy.demodulate_tracked(
+            ext, max(start + 3 * sym - eb, 0), n_sym, ch_re, ch_im, mode, n_valid_sym=n_valid_sym
+        )
+
+
+def _track_span(n_sym: int, block_syms: int):
+    """One call of the timing tracker: the ``tracked`` counter and a
+    ``decode.track`` span over it (its ``decode.track.pass`` spans and the
+    ``track_blocks`` counter are ``phy.demodulate_tracked``'s)."""
+    trace.count("tracked")
+    return trace.span("decode.track", n_sym=n_sym, blocks=-(-n_sym // block_syms), passes=len(phy.TRACK_GAINS))
+
+
+def _header_symbols(by: bytes, mode: ModemMode, n_max: int, fallback: int) -> int:
+    """Data symbols of the frame whose untracked bytes are ``by``, as its
+    header states them (a chunk frame's or a legacy frame's), at most
+    ``n_max``; ``fallback`` where the header is unreadable. Drift barely
+    moves the first symbols, so the untracked header holds under any offset
+    the tracker follows."""
+    wire = _wire_payload_len(by)
+    if wire is None and by and len(by) >= 5 + by[0]:  # a legacy frame: [nameLen][name][dataLen:4][data][CRC:4]
+        off = 1 + by[0]
+        wire = off + 4 + int.from_bytes(by[off : off + 4], "big") + 4
+    if wire is None:
+        return fallback
+    return min(max(num_symbols_for_payload(wire, mode), 1), n_max)
 
 
 def _soft_retry_applicable(mode: ModemMode) -> bool:
@@ -269,11 +302,14 @@ def decode_raw(
         return FrameError("No data after CE"), info
 
     n_sym = (n_valid - data_start) // sym
+    # the row's bytes of the frame's n_sym symbols: groups and bytes start at bit 0
+    raw = packed[: n_sym * bits_per_symbol(mode) // mode.repetition // 8].tobytes()
     if not (track_timing and n_sym > 0):
-        # the row's bytes of the frame's n_sym symbols: groups and bytes start at bit 0
-        n_bytes = n_sym * bits_per_symbol(mode) // mode.repetition // 8
-        return packed[:n_bytes].tobytes(), info
-    b, _tau = _tracked_core(sig_dev, n_valid, start, mode, n_sym)
+        return raw, info
+    # the junk past the frame (the sender's trailing silence, the rest of the
+    # recording) would steer the timing loop: its measurement stops where the
+    # header says the frame ends
+    b, _tau = _tracked_core(sig_dev, n_valid, start, mode, n_sym, _header_symbols(raw, mode, n_sym, n_sym))
     with trace.span("decode.vote_pack"):
         if mode.repetition > 1:
             b = majority_vote(b, mode.repetition)
@@ -405,9 +441,7 @@ def decode_chunk_frame(frame: "np.ndarray | torch.Tensor", mode: ModemMode, devi
         # touches the first symbols), bounds the loop's measurement: a bucket
         # tail can reach the next frame's preamble.
         with _rung("tracked"):
-            wire = _wire_payload_len(raw_by)
-            nv = min(max(num_symbols_for_payload(wire, mode), 1), n_bucket) if wire is not None else n_sym
-            tbits = _chunk_tracked_core(frame_dev, mode, n_bucket, nv)
+            tbits = _chunk_tracked_core(frame_dev, mode, n_bucket, _header_symbols(raw_by, mode, n_bucket, n_sym))
             tresult = _bits_to_parse(tbits, n_sym, mode, min_len=6)
             if not _parse_failed(tresult):
                 return tresult
@@ -463,11 +497,12 @@ def _chunk_tracked_core(frame: torch.Tensor, mode: ModemMode, n_sym: int, n_vali
     the frame's payload out of the timing measurement."""
     sym = mode.profile.symbol_len
     eb = TRACK_EARLY_BIAS
-    ch_re, ch_im = _frame_channel(frame, mode, eb)
-    ext = torch.nn.functional.pad(frame, (0, TRACK_BLOCK_SYMS * sym + 8192))
-    bits, _tau = phy.demodulate_tracked(
-        ext, 3 * sym - eb, n_sym, ch_re, ch_im, mode, block_syms=TRACK_BLOCK_SYMS, n_valid_sym=n_valid_sym
-    )
+    with _track_span(n_sym, TRACK_BLOCK_SYMS):
+        ch_re, ch_im = _frame_channel(frame, mode, eb)
+        ext = torch.nn.functional.pad(frame, (0, TRACK_BLOCK_SYMS * sym + 8192))
+        bits, _tau = phy.demodulate_tracked(
+            ext, 3 * sym - eb, n_sym, ch_re, ch_im, mode, block_syms=TRACK_BLOCK_SYMS, n_valid_sym=n_valid_sym
+        )
     return bits
 
 

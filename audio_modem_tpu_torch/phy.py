@@ -14,6 +14,11 @@ from audio_modem_tpu_torch.configs import ModemMode, OfdmProfile
 from audio_modem_tpu_torch.ops import constellations as con
 from audio_modem_tpu_torch.ops.dft import synthesize_data_symbols, time_to_spec, time_to_spec_bins
 from audio_modem_tpu_torch.tables import profile_tables
+from audio_modem_tpu_torch.utils import trace
+
+TRACK_BLOCK = 64  # symbols a block of the tracking loop, unless a caller says otherwise
+# the loop's (g1, g2) gains of its passes, in order: acquire, frozen, from the fit
+TRACK_GAINS = ((0.5, 0.25), (0.0, 0.0), (0.5, 0.25))
 
 
 def add_cp(body: torch.Tensor, profile: OfdmProfile) -> torch.Tensor:
@@ -150,7 +155,7 @@ def demodulate_tracked(
     ch_re: torch.Tensor,
     ch_im: torch.Tensor,
     mode: ModemMode,
-    block_syms: int = 64,
+    block_syms: int = TRACK_BLOCK,
     n_valid_sym: "int | None" = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Demodulate ``n_sym`` symbols of the 1-D ``sig_ext`` from ``data_start``
@@ -165,7 +170,9 @@ def demodulate_tracked(
     (acquires a rate), frozen loop (per-block residuals, fitted by weighted
     least squares to a rate and head offset), closed loop from the fit (the
     bits). Symbols at or past ``n_valid_sym`` are left out of the timing
-    measurement. Returns (bits [n_sym * bits_per_symbol], final tau)."""
+    measurement. Returns (bits [n_sym * bits_per_symbol], final tau).
+    While the span recorder is on, each pass is a ``decode.track.pass``
+    span (attr ``index``) and each block step counts in ``track_blocks``."""
     p = mode.profile
     dev = sig_ext.device
     tabs = profile_tables(p, dev)
@@ -213,18 +220,21 @@ def demodulate_tracked(
         new_tau = tau + rate * block_syms - g1 * delta_blk
         return new_tau, new_rate, bits, delta_blk, measured
 
-    def run(tau, rate, g1, g2):
+    def run(index, tau, rate):
+        g1, g2 = TRACK_GAINS[index]
         bits, deltas, weights = [], [], []
-        for b in range(n_blocks):
-            tau, rate, bb, dlt, w = step(tau, rate, b, g1, g2)
-            bits.append(bb)
-            deltas.append(dlt)
-            weights.append(w)
+        with trace.span("decode.track.pass", index=index):
+            for b in range(n_blocks):
+                tau, rate, bb, dlt, w = step(tau, rate, b, g1, g2)
+                bits.append(bb)
+                deltas.append(dlt)
+                weights.append(w)
+        trace.count("track_blocks", n_blocks)
         return tau, rate, bits, torch.stack(deltas), torch.stack(weights)
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    _, rate_acq, _, _, _ = run(zero, zero, 0.5, 0.25)
-    _, _, _, deltas_m, ws = run(zero, rate_acq, 0.0, 0.0)
+    _, rate_acq, _, _, _ = run(0, zero, zero)
+    _, _, _, deltas_m, ws = run(1, zero, rate_acq)
     x = torch.arange(n_blocks, dtype=torch.float32, device=dev) * block_syms + (block_syms - 1) / 2.0
     w = ws.to(torch.float32)
     wsum = torch.clamp(w.sum(), min=1e-6)
@@ -233,7 +243,7 @@ def demodulate_tracked(
     den = (w * (x - xm) ** 2).sum()
     slope = torch.where(den > 1e-6, (w * (x - xm) * (deltas_m - dm)).sum() / torch.clamp(den, min=1e-6), 0.0)
     intercept = dm - slope * xm
-    tau_f, _, bits, _, _ = run(-intercept, rate_acq - slope, 0.5, 0.25)
+    tau_f, _, bits, _, _ = run(2, -intercept, rate_acq - slope)
     bits = torch.cat(bits).reshape(n_blocks * block_syms, -1)[:n_sym]
     return bits.reshape(-1), tau_f
 

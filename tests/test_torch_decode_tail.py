@@ -122,13 +122,16 @@ def _parent_decode_raw(signal, mode, track_timing=False, device="cpu"):
     if data_start >= n_valid:
         return FrameError("No data after CE"), info
     n_sym = (n_valid - data_start) // sym
-    if track_timing and n_sym > 0:
-        b, _ = decoder._tracked_core(sig_dev, n_valid, start, mode, n_sym)
-    else:
-        b = out["bits"][0, : n_sym * bits_per_symbol(mode)]
+    b = out["bits"][0, : n_sym * bits_per_symbol(mode)]
     if mode.repetition > 1:
         b = majority_vote(b, mode.repetition)
-    return bits_to_bytes(b).numpy().tobytes(), info
+    raw = bits_to_bytes(b).numpy().tobytes()
+    if track_timing and n_sym > 0:  # the loop measures the symbols the untracked header counts
+        b, _ = decoder._tracked_core(sig_dev, n_valid, start, mode, n_sym, decoder._header_symbols(raw, mode, n_sym, n_sym))
+        if mode.repetition > 1:
+            b = majority_vote(b, mode.repetition)
+        raw = bits_to_bytes(b).numpy().tobytes()
+    return raw, info
 
 
 def _awgn(x: np.ndarray, snr_db: float, seed: int) -> np.ndarray:

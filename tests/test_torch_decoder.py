@@ -272,6 +272,43 @@ def test_demodulate_tracked_matches_jax():
     assert abs(float(tau) - float(jtau)) < 1e-3
 
 
+@pytest.mark.parametrize("ppm", [100.0, -100.0])
+def test_tracked_core_bounded_to_the_frame_matches_jax(ppm):
+    """The one-shot tracker as ``decode_raw`` calls it, its timing
+    measurement bounded to the frame's own symbols by the untracked header,
+    on a drifted BPSK-REPEAT frame whose recording runs 34 symbols past it:
+    the bound is the frame's symbol count, the decode is exact, and the bits
+    and final timing equal the JAX package's loop given the same bound."""
+    mode, jmode = MODES["BPSK-REPEAT"], JMODES["BPSK-REPEAT"]
+    p = mode.profile
+    sym, eb = p.symbol_len, decoder.TRACK_EARLY_BIAS
+    data = np.random.default_rng(6).bytes(1500)
+    sig = japi.encode_legacy(data, jmode, "d.bin")
+    drifted = channel.apply_channel_np(sig, channel.ChannelSpec(clock_ppm=ppm, snr_db=18.0), seed=2, device="cpu")
+    calls = []
+    real = decoder._tracked_core
+
+    def tap(signal, n_valid, start, mode_, n_sym, n_valid_sym):
+        out = real(signal, n_valid, start, mode_, n_sym, n_valid_sym)
+        calls.append((signal.numpy(), n_valid, start, n_sym, n_valid_sym, out))
+        return out
+
+    decoder._tracked_core = tap
+    try:
+        result, _ = api.decode(drifted, mode, track_timing=True, device="cpu")
+    finally:
+        decoder._tracked_core = real
+    assert isinstance(result, framing.LegacyFrame) and result.crc_valid and result.data == data
+    (signal, n_valid, start, n_sym, n_valid_sym, (bits, tau)), = calls
+    assert n_valid_sym == framing.num_symbols_for_payload(len(data) + 1 + len("d.bin") + 8, mode) < n_sym
+    ext = jnp.pad(jsync.preprocess(jnp.asarray(signal), jnp.int32(n_valid)), (0, 8192))
+    jre, jim = jphy.estimate_channel(ext[start + 2 * sym - eb : start + 3 * sym - eb], jmode.profile)
+    jb, jtau = jphy.demodulate_tracked(ext, jnp.int32(start + 3 * sym - eb), n_sym, jre, jim, jmode,
+                                       n_valid_sym=jnp.int32(n_valid_sym))
+    assert np.array_equal(bits.numpy(), np.asarray(jb))
+    assert abs(float(tau) - float(jtau)) < 1e-3
+
+
 def test_detect_preamble_xcorr_matches_jax():
     mode = MODES["QPSK"]
     p = mode.profile

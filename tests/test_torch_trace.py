@@ -14,7 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from audio_modem_tpu_torch import api, decoder, diag, framing, kernels
+from audio_modem_tpu_torch import api, channel, decoder, diag, framing, kernels
 from audio_modem_tpu_torch.configs import MODES
 from audio_modem_tpu_torch.runtime import receiver as runtime_receiver
 from audio_modem_tpu_torch.utils import trace
@@ -368,3 +368,34 @@ def test_a_loopback_analysis_counts_its_pair_read(recorder, monkeypatch):
     assert on.detected and on.correlation == max(0.0, metric) > 0.5
     for field in dataclasses.fields(off):
         assert np.array_equal(getattr(on, field.name), getattr(off, field.name)), field.name
+
+
+def test_a_tracked_decode_counts_its_blocks(recorder):
+    """``api.decode(track_timing=True)`` of a drifted BPSK-ACOUSTIC frame:
+    one ``decode.track`` span (attrs ``n_sym``, ``blocks``, ``passes``) with
+    its three ``decode.track.pass`` spans inside it, ``track_blocks`` three
+    times the blocks, ``tracked`` one a ``decode.track`` span, the tracked
+    bits' read one ``decode.sync`` span among ``host_syncs``; the same
+    result with the recorder off."""
+    mode = MODES["BPSK-ACOUSTIC"]
+    data = np.random.default_rng(12).bytes(1200)
+    tx = framing.build_transmit_signal(data, mode, "t.bin", device="cpu").numpy()
+    sig = channel.apply_channel_np(tx, channel.ChannelSpec(clock_ppm=150.0, snr_db=25.0), seed=4, device="cpu")
+    off, _ = api.decode(sig, mode, track_timing=True, device="cpu")
+    trace.enable()
+    try:
+        on, _ = api.decode(sig, mode, track_timing=True, device="cpu")
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    assert on.crc_valid and on.data == data and dataclasses.asdict(on) == dataclasses.asdict(off)
+    by_id = {s.id: s for s in spans}
+    [track] = [s for s in spans if s.name == "decode.track"]
+    passes = sorted((s for s in spans if s.name == "decode.track.pass"), key=lambda s: s.start_ns)
+    assert by_id[track.parent].name == "decode" and track.attrs["passes"] == 3
+    assert track.attrs["blocks"] == -(-track.attrs["n_sym"] // 64) > 1
+    assert [s.attrs["index"] for s in passes] == [0, 1, 2] and all(s.parent == track.id for s in passes)
+    assert counters["track_blocks"] == 3 * track.attrs["blocks"]
+    assert counters["tracked"] == 1
+    syncs = [s.attrs["what"] for s in spans if s.name == "decode.sync"]
+    assert counters["host_syncs"] == len(syncs) and syncs == ["row", "bits"]
