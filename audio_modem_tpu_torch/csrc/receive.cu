@@ -3,14 +3,16 @@
 // chunk demod (kernel B), the streaming demod of a data region whose
 // channel is already known, and the one-shot decoder's tail after kernel A
 // (vote, byte pack and |H| into one row a stream), and the chunked receiver's
-// scan and refine, with a plain C interface
+// scan and refine, and the decoder's timing tracker, with a plain C interface
 // for ctypes (see kernels/_build.py). A is a pipeline of six launches gridded
 // over (tiles or symbol tiles, streams); C five (A's first two, a slot chain a
 // stream, the demod over (symbol tiles, slots, streams), the pack); B is two
 // launches (peak; CE and demod) gridded over (chunks or symbol tiles,
 // frames); the streaming demod one CTA per (symbol tile, stream); the tail
 // one launch over (byte tiles, streams); the scan one CTA a window, the
-// refine one CTA a region.
+// refine one CTA a region; the tracker three launches, one a pass of its loop
+// (a cluster of kTrackCluster CTAs, one CTA a block, a cluster of
+// kTrackCluster CTAs), on C's FFT and the shared epilogue.
 //
 // All four end in the same demod (per symbol: DFT at the data and pilot
 // bins, ZF EQ, pilot phase, hard demap, int8 bits). A, B and the streaming
@@ -25,12 +27,15 @@
 // goes through the _rn intrinsics so nvcc cannot contract it into FMAs: the
 // kernel reproduces the plain coarse index and metric bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreadsA = 1024;  // kernel A's per-lane and per-stream stages
 constexpr int kThreadsPeak = 256;  // kernel B's peak: one CTA per (chunk of a frame, frame)
@@ -551,8 +556,38 @@ static_assert(kThreadsFft >= kFftRows, "the pilot phase takes one thread per sym
 static_assert(kThreadsFft % 32 == 0, "a row's 16 threads are half of a whole warp (__syncwarp)");
 static_assert(kFft == 2 * 16 * 16, "the plan is a 16 x 16 complex FFT of the packed 512-sample body");
 
+// The FFT's tables in shared memory, filled from Demod::twiddle and
+// Demod::bins once a CTA: W256^(n2 k1) at [k1][n2], so the 16 threads of a
+// row read 16 neighbouring entries (the twiddles read at each use from
+// device memory were scattered over 128-byte lines), and each column's bin
+// and W512^bin for the real split.
+struct FftTabs {
+  float2* w256;  // [16][16]
+  float2* wbin;  // [nd + npi]
+  int* bin;      // [nd + npi]
+};
+
+__host__ __device__ inline int fft_tabs_floats(const Demod& d) { return 2 * 256 + round4(3 * (d.nd + d.npi)); }
+
+// Carves the tables from ``at`` (8-byte aligned) and fills them; the caller
+// synchronizes before the FFT reads them.
+__device__ FftTabs fft_tabs(const Demod& d, float* at) {
+  FftTabs ft;
+  ft.w256 = reinterpret_cast<float2*>(at);
+  ft.wbin = ft.w256 + 256;
+  ft.bin = reinterpret_cast<int*>(ft.wbin + d.nd + d.npi);
+  const float2* __restrict__ tw = reinterpret_cast<const float2*>(d.twiddle);
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) ft.w256[i] = __ldg(tw + 2 * (i & 15) * (i >> 4));
+  for (int j = threadIdx.x; j < d.nd + d.npi; j += blockDim.x) {
+    const int b = __ldg(d.bins + j);
+    ft.bin[j] = b;
+    ft.wbin[j] = __ldg(tw + b);
+  }
+  return ft;
+}
+
 __host__ __device__ inline int fft_smem_floats(const Demod& d) {
-  return kFftRows * kFftLd + round4(3 * d.nd + 3 * d.npi + kFftRows + 2 * kFftRows * d.npi);
+  return kFftRows * kFftLd + round4(3 * d.nd + 3 * d.npi + kFftRows + 2 * kFftRows * d.npi) + fft_tabs_floats(d);
 }
 
 // A 4-point DFT, forward sign, of elements I0, I0+S, I0+2S, I0+3S, in place.
@@ -592,59 +627,59 @@ __device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16], const fl
   dft4<12, 1>(re, im);
 }
 
-// Data symbols k0 .. k0+g-1 (g <= kFftRows - 1) of one stream, symbol k's
-// body at data_pos + (k - k0)*sym of sample source ``src`` (sample i is
-// src.map(src.x[i]) where src.has(i), else 0), the CE body at ``ce_pos``:
-// FFT, EQ tables from the CE row, demod_epilogue. ``bits`` is the row's
-// first bit (4-byte aligned).
-template <class Src>
-__device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const Demod& d, int k0, int g,
-                               signed char* __restrict__ bits, float* smem) {
-  constexpr int NT = kThreadsFft;
-  const int tid = threadIdx.x, rows = g + 1, nd = d.nd, npi = d.npi, nbin = nd + npi;
-  const int sym = kFft + d.cp;
-  float* hd = smem + kFftRows * kFftLd;
-  float* hp = hd + 3 * nd;
-  float* phi = hp + 3 * npi;
-  float* ratio = phi + kFftRows;
-  float* usable = ratio + kFftRows * npi;
-  const float2* __restrict__ tw = reinterpret_cast<const float2*>(d.twiddle);
-
-  // bodies in, from the 16-byte aligned sample a before each row's first
-  const int a = (int)(((reinterpret_cast<uintptr_t>(src.x) >> 2) + (unsigned)ce_pos) & 3);
-  const int nq = (a + kFft + 3) >> 2;  // quads a row
-  auto first = [=](int m) { return (m == 0 ? ce_pos : data_pos + (m - 1) * sym) - a; };
-  for (Walk<NT> w(nq); w.k < rows; w.next()) {
-    const int m = w.k, q = w.j, pos = first(m) + 4 * q;
+// Rows 0 .. rows-1 of ``smem`` (row m at m * kFftLd floats) by cp.async, one
+// commit group: row m holds the off(m) samples of ``src`` before pos(m), then
+// its kFft-sample body, read from the 16-byte aligned sample at or below
+// pos(m); 0 past the source's ends. Raw: the FFT's first read applies the
+// source's map. off(m) is the misalignment of pos(m), at most 3.
+template <int NT, class Src, class Pos, class Off>
+__device__ void stage_rows(const Src& src, Pos pos, Off off, int rows, float* smem) {
+  constexpr int kQuads = (3 + kFft + 3) / 4;  // a row's quads at the widest misalignment
+  for (Walk<NT> w(kQuads); w.k < rows; w.next()) {
+    const int m = w.k, q = w.j, a = off(m);
+    if (4 * q >= a + kFft) continue;
+    const int p = pos(m) - a + 4 * q;
     float* dst = smem + m * kFftLd + 4 * q;
-    if (src.has(pos) && src.has(pos + 3)) {
-      cp_async16(dst, src.x + pos);
+    if (src.has(p) && src.has(p + 3)) {
+      cp_async16(dst, src.x + p);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (src.has(pos + e))
-          cp_async4(dst + e, src.x + pos + e);
+        if (src.has(p + e))
+          cp_async4(dst + e, src.x + p + e);
         else
           dst[e] = 0.0f;
       }
     }
   }
   cp_async_commit();
+}
+
+// The 512-point real FFT of each staged row 0 .. rows-1 of ``smem``
+// (stage_rows' layout, pos and off), the spectrum at the columns j0 .. nd +
+// npi - 1 of the bins written over the row as the product tile lays it out
+// (data re | data im | pilot re | pilot im; the other columns are left
+// undefined), with the tables ``ft``. 16 threads a row, NT / 16 rows at a
+// time; every thread runs every pass. The caller synchronizes before and
+// after.
+template <int NT, class Src, class Pos, class Off>
+__device__ void fft_rows(const Src& src, Pos pos, Off off, int rows, int j0, const Demod& d, const FftTabs& ft,
+                         float* smem) {
+  const int tid = threadIdx.x, nd = d.nd, npi = d.npi, nbin = nd + npi;
+  const float2* __restrict__ tw = reinterpret_cast<const float2*>(d.twiddle);
   float2 w16[10];  // W16^e = W512^(32 e)
 #pragma unroll
   for (int e = 0; e < 10; ++e) w16[e] = __ldg(tw + 32 * e);
-  cp_async_wait<0>();
-  __syncthreads();  // every row has landed, raw: the FFT's first read applies the source's map
 
-  // one FFT per row; a row's 16 threads are one half of a warp, so __syncwarp
-  // orders their shared-memory steps, and every thread runs every pass
+  // a row's 16 threads are one half of a warp, so __syncwarp orders their
+  // shared-memory steps
   const int l16 = tid & 15;
   for (int m0 = 0; m0 < rows; m0 += NT / 16) {
     const int m = m0 + (tid >> 4);
     const bool live = m < rows;
     float* row = smem + (live ? m : 0) * kFftLd;
     float2* row2 = reinterpret_cast<float2*>(row);
-    const int p0 = first(live ? m : 0) + a;  // the body's first sample; the map where the source has it
+    const int p0 = pos(live ? m : 0), a = off(live ? m : 0);  // the body's first sample; the map where the source has it
     const bool whole = src.has(p0) && src.has(p0 + kFft - 1);
     float re[16], im[16];
 #pragma unroll
@@ -658,7 +693,7 @@ __device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const D
 #pragma unroll
     for (int k1 = 0; k1 < 16; ++k1) {
       const int at = 4 * (k1 & 3) + (k1 >> 2);
-      cmul(re[at], im[at], __ldg(tw + 2 * l16 * k1));  // W256^(n2 k1)
+      cmul(re[at], im[at], ft.w256[16 * k1 + l16]);  // W256^(n2 k1)
       if (live) row2[17 * l16 + k1] = make_float2(re[at], im[at]);
     }
     __syncwarp();
@@ -679,9 +714,9 @@ __device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const D
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int j = l16 + 16 * i;
-      if (live && j < nbin) {
-        const int b = __ldg(d.bins + j);
-        const float2 zb = row2[b & 255], zc = row2[(256 - b) & 255], w = __ldg(tw + b);
+      if (live && j >= j0 && j < nbin) {
+        const int b = ft.bin[j];
+        const float2 zb = row2[b & 255], zc = row2[(256 - b) & 255], w = ft.wbin[j];
         const float er = 0.5f * (zb.x + zc.x), ei = 0.5f * (zb.y - zc.y);
         const float orr = 0.5f * (zb.y + zc.y), oi = -0.5f * (zb.x - zc.x);
         re[i] = er + (w.x * orr - w.y * oi);
@@ -692,7 +727,7 @@ __device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const D
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int j = l16 + 16 * i;
-      if (live && j < nbin) {
+      if (live && j >= j0 && j < nbin) {
         const bool data = j < nd;
         const int c = data ? j : 2 * nd + (j - nd), m_im = data ? nd : npi;
         row[c] = re[i];
@@ -700,6 +735,35 @@ __device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const D
       }
     }
   }
+}
+
+// Data symbols k0 .. k0+g-1 (g <= kFftRows - 1) of one stream, symbol k's
+// body at data_pos + (k - k0)*sym of sample source ``src`` (sample i is
+// src.map(src.x[i]) where src.has(i), else 0), the CE body at ``ce_pos``:
+// FFT, EQ tables from the CE row, demod_epilogue. ``bits`` is the row's
+// first bit (4-byte aligned).
+template <class Src>
+__device__ void fft_demod_tile(const Src& src, int ce_pos, int data_pos, const Demod& d, int k0, int g,
+                               signed char* __restrict__ bits, float* smem) {
+  constexpr int NT = kThreadsFft;
+  const int rows = g + 1, nd = d.nd, npi = d.npi;
+  const int sym = kFft + d.cp;
+  float* hd = smem + kFftRows * kFftLd;
+  float* hp = hd + 3 * nd;
+  float* phi = hp + 3 * npi;
+  float* ratio = phi + kFftRows;
+  float* usable = ratio + kFftRows * npi;
+  float* tabs = smem + kFftRows * kFftLd + round4(3 * nd + 3 * npi + kFftRows + 2 * kFftRows * npi);
+
+  // the rows of a slot share their misalignment a, since sym is a multiple of 4
+  const int a = (int)(((reinterpret_cast<uintptr_t>(src.x) >> 2) + (unsigned)ce_pos) & 3);
+  auto pos = [=](int m) { return m == 0 ? ce_pos : data_pos + (m - 1) * sym; };
+  auto off = [=](int) { return a; };
+  stage_rows<NT>(src, pos, off, rows, smem);
+  const FftTabs ft = fft_tabs(d, tabs);
+  cp_async_wait<0>();
+  __syncthreads();  // every row and the tables have landed
+  fft_rows<NT>(src, pos, off, rows, 0, d, ft, smem);
   __syncthreads();
   eq_tables_from_ce(d, hd, hp, smem);
   __syncthreads();
@@ -1686,6 +1750,344 @@ stream_demod_kernel(const float* __restrict__ data, long long ld, int L,
                          smem);
 }
 
+// ---- the timing tracker: three launches a call ----
+//
+// Replaces no Pallas kernel: the JAX package's phy.demodulate_tracked
+// (audio_modem_tpu/phy.py:205) is three lax.scans over the blocks that XLA
+// compiles; the port's plain version (phy.demodulate_tracked) runs ~140
+// PyTorch operations a block step from the host. The loop, over blocks of
+// bs <= kTrackRows symbols of one signal: each window starts at data_start
+// + symbol * sym + cp + rint(tau + rate * j) (half to even, as torch.round),
+// clamped into [0, n - fft] as _clamped_windows does; the sub-sample rest
+// is derotated in frequency (sincosf, not the fast intrinsic); the pilots
+// are equalized; a symbol's timing error is the sum of atan2f of the
+// adjacent pilots' steps over the sum of their 2 pi dk / fft, over the steps
+// whose two pilots both have |P|^2 > 1e-12 and only for symbols below
+// n_valid_sym; the block's error is the mean over the symbols that have one,
+// clamped to +-8; rate -= g2 * err / bs, tau += rate * bs - g1 * err (the old
+// rate). All of it in float32 in the plain version's expression order (_rn
+// intrinsics, so nvcc contracts nothing into an FMA); the sums run in a
+// fixed order (a symbol's steps in pilot order; the block's symbols a CTA
+// holds, and the fit's blocks, as a lane's strided chain, then a xor tree
+// over the warp; the CTAs' partial sums in rank order).
+//
+// What bounds it on the H100: latency. The work is small (each pass reads
+// every window once: 3 x 31.6 MB for config 2, 22.6 us at 3.35 TB/s), but
+// passes 0 and 2 are chains of dependent block steps: a step's windows
+// depend on the previous step's tau and rate. The state between the
+// launches (the acquired rate, the frozen pass's errors and weights, the
+// final tau) stays in ``state`` on the card; nothing is read back between
+// passes:
+//   0. closed loop from tau = rate = 0, gains (g1, g2), pilot bins only: the
+//      acquired rate into state[0];
+//   1. the frozen loop, gains 0: tau moves by rate * bs a block and rate
+//      stays the acquired one, so each CTA forms its block's tau by the same
+//      serial float32 sums and the blocks run in parallel, one CTA each:
+//      their errors and weights (measured symbols) into state;
+//   2. the weighted least-squares line through pass 1's errors at the
+//      blocks' centres (the plain version's float32 formulas and its 1e-6
+//      guards), then the closed loop from (-intercept, rate_acq - slope) with
+//      every bin: the bits (demod_epilogue on the derotated spectrum with the
+//      channel's EQ tables) and the final tau into state[1].
+// A step stages its windows by cp.async in shared memory (stage_rows) and
+// transforms them by kernel C's 512-point real FFT (fft_rows). The FFT, not a product at the pilot
+// bins, serves all three passes: a product at the 7 pilot bins of
+// BPSK-REPEAT costs about as much as the FFT of every window (0.9 against
+// 0.74 MFLOP a step), at the 16 pilots of the standard profile twice as
+// much, and pass 2 needs every bin, where the product (9.3 MFLOP a step) is
+// 12x the FFT. Its spectrum rounds apart from the plain matmul's at the 1e-7
+// level, which moves tau by far less than a float32 ulp of a tau near 800.
+// A serial pass is one cluster of kTrackCluster CTAs, each holding a
+// quarter of a block's rows in a step and keeping the loop state in
+// registers: one CTA walking config 2's chain took 12.8 us a step of pass 0
+// and 19 us of pass 2 on the H100, two thirds of it in the staging and the
+// FFT of 64 rows on one SM (clock64 around the phases); four CTAs take 7.3
+// and 10.2 us (eight: 7.4 and 9.5, so four it is). The CTAs add their
+// rows' errors, hand the partial sums to every CTA of the cluster through
+// distributed shared memory (two sets, by the step's parity, so a CTA one
+// step ahead writes into the other) and meet at one cluster barrier a step.
+
+constexpr int kTrackRows = 64;       // symbols a block at most (phy.TRACK_BLOCK)
+constexpr int kTrackCluster = 4;     // CTAs of a serial pass, each with a share of a block's rows
+constexpr int kThreadsTrack = 512;   // 32 rows of the FFT at a time
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kPilotStep = 6.28318530717958647692f / kFft;  // (2 pi / fft) as the plain version rounds it
+constexpr float kMaxShift = 1e9f;    // a window shift past any signal, kept inside long long
+static_assert(kThreadsTrack >= kTrackRows && kThreadsTrack % 32 == 0, "a thread a symbol, whole warps");
+
+struct Track {
+  const float* x;  // the signal, n samples
+  int n, data_start, n_sym, bs, n_valid_sym, n_blocks;
+  const float* ch_re;  // the active-bin channel [n_active]
+  const float* ch_im;
+  float g1, g2;
+};
+
+// The tracker's shared memory for ``cap`` rows a CTA, carved from
+// track_smem_floats(d, cap) floats.
+struct TrackSmem {
+  float* rows;    // [cap][kFftLd]: the windows, then their spectra
+  float* hd;      // [3*nd]: the EQ tables (put_eq)
+  float* hp;      // [3*npi]
+  float* phi;     // [cap]: the epilogue's
+  float* ratio;   // [cap * npi]: the equalized pilots' re, then the epilogue's
+  float* usable;  // [cap * npi]: their im, then the epilogue's
+  float* frac;    // [cap]: a window's sub-sample rest
+  float* err;     // [cap]: a symbol's timing error
+  float* red;     // [4]: the fit's tau and rate
+  int* pos;       // [cap]: a window's first sample
+  int* off;       // [cap]: its misalignment
+  int* measured;  // [cap]: 1 where the symbol has a measured step
+  float* ang;     // [cap * npi]: a pilot step's angle
+  float* coef;    // [cap * npi]: its 2 pi dk / fft, 0 where it is not measured
+  float2* part;   // [2][kTrackCluster]: each CTA's error sum and count, by the step's parity
+  FftTabs ft;
+};
+
+__host__ __device__ inline int track_smem_floats(const Demod& d, int cap) {
+  return cap * kFftLd + round4(3 * d.nd + 3 * d.npi) + cap * (4 * d.npi + 6) + 4 + 4 * kTrackCluster +
+         fft_tabs_floats(d);
+}
+
+__device__ TrackSmem carve_track(const Demod& d, int cap, float* smem) {
+  TrackSmem s;
+  s.rows = smem;
+  s.hd = s.rows + cap * kFftLd;
+  s.hp = s.hd + 3 * d.nd;
+  s.phi = s.hd + round4(3 * d.nd + 3 * d.npi);
+  s.ratio = s.phi + cap;
+  s.usable = s.ratio + cap * d.npi;
+  s.frac = s.usable + cap * d.npi;
+  s.err = s.frac + cap;
+  s.pos = reinterpret_cast<int*>(s.err + cap);
+  s.off = s.pos + cap;
+  s.measured = s.off + cap;
+  s.red = reinterpret_cast<float*>(s.measured + cap);
+  s.ang = s.red + 4;
+  s.coef = s.ang + cap * d.npi;
+  s.part = reinterpret_cast<float2*>(s.coef + cap * d.npi);
+  s.ft = fft_tabs(d, reinterpret_cast<float*>(s.part + 2 * kTrackCluster));
+  return s;
+}
+
+// A sum over the warp in a fixed order: each lane's value, then a xor tree;
+// every lane gets the total.
+__device__ __forceinline__ float warp_sum_rn(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One block step of the loop at (tau, rate) over block b, this CTA holding
+// the block's rows r0 .. r0+nr-1 of its cluster's: the block's error
+// (clamped) and its count of measured symbols, the same in every thread of
+// the cluster. BITS: every bin, and the bits of this CTA's symbols below
+// n_sym; else the pilot bins alone.
+template <bool BITS>
+__device__ void track_step(const Track& t, const Demod& d, const TrackSmem& s, cg::cluster_group& cluster, int b,
+                           int r0, int nr, float tau, float rate, float& err, int& measured,
+                           signed char* __restrict__ bits) {
+  constexpr int NT = kThreadsTrack;
+  const int tid = threadIdx.x, bs = t.bs, nd = d.nd, npi = d.npi, sym = kFft + d.cp;
+  const StreamSrc src{t.x, t.n, 1.0f};
+  if (tid < nr) {
+    const float o = __fadd_rn(tau, __fmul_rn(rate, (float)(r0 + tid)));
+    const float shift = rintf(o);
+    s.frac[tid] = __fsub_rn(o, shift);
+    long long p = (long long)t.data_start + (long long)(b * bs + r0 + tid) * sym + d.cp +
+                  (long long)fminf(fmaxf(shift, -kMaxShift), kMaxShift);
+    p = p < 0 ? 0 : p > t.n - kFft ? t.n - kFft : p;
+    s.pos[tid] = (int)p;
+    s.off[tid] = (int)(((reinterpret_cast<uintptr_t>(t.x) >> 2) + (unsigned)p) & 3);
+  }
+  __syncthreads();
+  auto pos = [&](int m) { return s.pos[m]; };
+  auto off = [&](int m) { return s.off[m]; };
+  stage_rows<NT>(src, pos, off, nr, s.rows);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int j0 = BITS ? 0 : nd;
+  fft_rows<NT>(src, pos, off, nr, j0, d, s.ft, s.rows);
+  __syncthreads();
+
+  // derotate by the sub-sample rest (bin k turns by 2 pi k frac / fft), and
+  // equalize the pilots
+  for (Walk<NT> w(nd + npi - j0); w.k < nr; w.next()) {
+    const int m = w.k, j = j0 + w.j;
+    const bool data = j < nd;
+    float* row = s.rows + m * kFftLd;
+    const int c = data ? j : 2 * nd + (j - nd), c_im = c + (data ? nd : npi);
+    const float ang = __fdiv_rn(__fmul_rn(__fmul_rn(kTwoPi, (float)s.ft.bin[j]), s.frac[m]), (float)kFft);
+    float sn, cs;
+    sincosf(ang, &sn, &cs);
+    const float re = row[c], im = row[c_im];
+    const float dre = __fsub_rn(__fmul_rn(re, cs), __fmul_rn(im, sn));
+    const float dim = __fadd_rn(__fmul_rn(im, cs), __fmul_rn(re, sn));
+    row[c] = dre;
+    row[c_im] = dim;
+    if (!data) {
+      const int i = j - nd;
+      equalize(dre, dim, s.hp[i], s.hp[npi + i], s.hp[2 * npi + i], s.hp[2 * npi + i] > 0.0f,
+               s.ratio[m * npi + i], s.usable[m * npi + i]);
+    }
+  }
+  __syncthreads();
+
+  // the steps between adjacent equalized pilots, every (symbol, step) at once:
+  // measured where both pilots have |P|^2 > 1e-12 and the symbol lies below
+  // n_valid_sym
+  for (Walk<NT> w(npi - 1); w.k < nr; w.next()) {
+    const int m = w.k, i = w.j, at = m * npi + i;
+    const float pr0 = s.ratio[at], pi0 = s.usable[at], pr1 = s.ratio[at + 1], pi1 = s.usable[at + 1];
+    const bool ok = (long long)b * bs + r0 + m < t.n_valid_sym &&
+                    __fadd_rn(__fmul_rn(pr1, pr1), __fmul_rn(pi1, pi1)) > 1e-12f &&
+                    __fadd_rn(__fmul_rn(pr0, pr0), __fmul_rn(pi0, pi0)) > 1e-12f;
+    const float u_re = __fadd_rn(__fmul_rn(pr1, pr0), __fmul_rn(pi1, pi0));
+    const float u_im = __fsub_rn(__fmul_rn(pi1, pr0), __fmul_rn(pr1, pi0));
+    s.ang[at] = ok ? atan2f(u_im, u_re) : 0.0f;
+    s.coef[at] = ok ? __fmul_rn(kPilotStep, (float)(s.ft.bin[nd + i + 1] - s.ft.bin[nd + i])) : 0.0f;
+  }
+  __syncthreads();
+  // a symbol's error: its measured steps' angles over their coefficients, in pilot order
+  if (tid < nr) {
+    float sa = 0.0f, sc = 0.0f;
+    int n_ok = 0;
+    for (int i = 0; i + 1 < npi; ++i) {
+      const int at = tid * npi + i;
+      if (s.coef[at] > 0.0f) {
+        sa = __fadd_rn(sa, s.ang[at]);
+        sc = __fadd_rn(sc, s.coef[at]);
+        ++n_ok;
+      }
+    }
+    s.err[tid] = n_ok > 0 ? __fdiv_rn(sa, fmaxf(sc, 1e-6f)) : 0.0f;
+    s.measured[tid] = n_ok > 0;
+  }
+  __syncthreads();
+  // the block's: the mean over its measured symbols, clamped; each CTA's
+  // partial sum to every CTA of the cluster, then added in rank order
+  const int par = b & 1, n_cta = (int)cluster.num_blocks();
+  if (tid < 32) {
+    float v = 0.0f;
+    int c = 0;
+    for (int m = tid; m < nr; m += 32) {
+      v = __fadd_rn(v, s.err[m]);
+      c += s.measured[m];
+    }
+    v = warp_sum_rn(v);
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (tid < n_cta)
+      *cluster.map_shared_rank(s.part + par * kTrackCluster + cluster.block_rank(), tid) = make_float2(v, (float)c);
+  }
+  cluster.sync();
+  float sum = 0.0f, cnt = 0.0f;
+  for (int r = 0; r < n_cta; ++r) {
+    const float2 pr = s.part[par * kTrackCluster + r];
+    sum = __fadd_rn(sum, pr.x);
+    cnt += pr.y;
+  }
+  err = fminf(fmaxf(__fdiv_rn(sum, cnt > 1.0f ? cnt : 1.0f), -8.0f), 8.0f);
+  measured = (int)cnt;
+  if (BITS) {
+    const int k0 = b * bs + r0, g = min(nr, t.n_sym - k0);
+    if (g > 0) demod_epilogue<NT>(d, s.rows, kFftLd, s.hd, s.hp, s.phi, s.ratio, s.usable, k0, g, bits);
+  }
+  __syncthreads();  // the rows and the scratch are free for the next step
+}
+
+// Pass kPass of the loop (see above), ``cap`` rows a CTA; ``state`` [2 + 2 *
+// n_blocks]: the acquired rate, the final tau, pass 1's errors, its
+// weights. Passes 0 and 2 run as one cluster, pass 1 as a CTA a block.
+template <int kPass>
+__global__ void __launch_bounds__(kThreadsTrack, 1)
+track_kernel(Track t, Demod d, int cap, float* __restrict__ state, signed char* __restrict__ bits) {
+  extern __shared__ __align__(16) float smem[];
+  const TrackSmem s = carve_track(d, cap, smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, bs = t.bs, nb = t.n_blocks;
+  float* errs = state + 2;
+  float* weights = errs + nb;
+  eq_tables(d, s.hd, s.hp, t.ch_re, t.ch_im);
+  cluster.sync();  // the tables, and every CTA of the cluster running before any writes into it
+  float tau = 0.0f, rate = 0.0f, err;
+  int measured;
+  if (kPass == 1) {
+    const int b = blockIdx.x;
+    rate = state[0];
+    for (int i = 0; i < b; ++i) tau = __fadd_rn(tau, __fmul_rn(rate, (float)bs));  // less g1 * err = 0
+    track_step<false>(t, d, s, cluster, b, 0, bs, tau, rate, err, measured, nullptr);
+    if (tid == 0) {
+      errs[b] = err;
+      weights[b] = (float)measured;
+    }
+    return;
+  }
+  if (kPass == 2) {  // the weighted least-squares line through pass 1's errors at the blocks' centres
+    if (tid < 32) {
+      const float centre = 0.5f * (float)(bs - 1);
+      float sw = 0.0f, swx = 0.0f, swd = 0.0f;
+      for (int i = tid; i < nb; i += 32) {
+        const float w = weights[i], x = __fadd_rn(__fmul_rn((float)i, (float)bs), centre);
+        sw = __fadd_rn(sw, w);
+        swx = __fadd_rn(swx, __fmul_rn(w, x));
+        swd = __fadd_rn(swd, __fmul_rn(w, errs[i]));
+      }
+      const float wsum = fmaxf(warp_sum_rn(sw), 1e-6f);
+      const float xm = __fdiv_rn(warp_sum_rn(swx), wsum), dm = __fdiv_rn(warp_sum_rn(swd), wsum);
+      float den = 0.0f, num = 0.0f;
+      for (int i = tid; i < nb; i += 32) {
+        const float w = weights[i], dx = __fsub_rn(__fadd_rn(__fmul_rn((float)i, (float)bs), centre), xm);
+        den = __fadd_rn(den, __fmul_rn(w, __fmul_rn(dx, dx)));
+        num = __fadd_rn(num, __fmul_rn(__fmul_rn(w, dx), __fsub_rn(errs[i], dm)));
+      }
+      den = warp_sum_rn(den);
+      num = warp_sum_rn(num);
+      const float slope = den > 1e-6f ? __fdiv_rn(num, fmaxf(den, 1e-6f)) : 0.0f;
+      if (tid == 0) {
+        s.red[0] = -__fsub_rn(dm, __fmul_rn(slope, xm));
+        s.red[1] = __fsub_rn(state[0], slope);
+      }
+    }
+    __syncthreads();
+    tau = s.red[0];
+    rate = s.red[1];
+  }
+  const int rank = (int)cluster.block_rank(), per = (bs + (int)cluster.num_blocks() - 1) / (int)cluster.num_blocks();
+  const int r0 = min(rank * per, bs), nr = min(per, bs - r0);
+  for (int b = 0; b < nb; ++b) {
+    track_step<kPass == 2>(t, d, s, cluster, b, r0, nr, tau, rate, err, measured, bits);
+    const float new_rate = __fsub_rn(rate, __fdiv_rn(__fmul_rn(t.g2, err), (float)bs));
+    tau = __fsub_rn(__fadd_rn(tau, __fmul_rn(rate, (float)bs)), __fmul_rn(t.g1, err));
+    rate = new_rate;
+  }
+  if (tid == 0 && rank == 0) state[kPass == 0 ? 0 : 1] = kPass == 0 ? rate : tau;
+}
+
+// Pass kPass on ``grid`` CTAs, in clusters of ``cluster`` (passes 0 and 2:
+// kTrackCluster; pass 1: 1), each with the shared memory of ceil(bs /
+// cluster) rows.
+template <int kPass>
+cudaError_t launch_track(const Track& t, const Demod& d, float* state, signed char* bits, int grid, int cluster,
+                         cudaStream_t stream) {
+  const int cap = (t.bs + cluster - 1) / cluster;
+  const size_t smem = sizeof(float) * track_smem_floats(d, cap);
+  const cudaError_t err =
+      cudaFuncSetAttribute(track_kernel<kPass>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreadsTrack);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, track_kernel<kPass>, t, d, cap, state, bits);
+}
+
 // Kernel A's tiling of a T-sample row with n_pos scan positions: rows *
 // n_rows_tiles is the power-of-two row count of sync.pairwise_row_sum.
 struct TilingA {
@@ -1904,6 +2306,35 @@ int amtpu_stream_refine(const float* window, int W, int n_valid, int coarse, con
   stream_refine_kernel<<<1, kThreadsStreamRefine, 0, stream>>>(window, W, n_valid, coarse, pre1, t_energy, sym, cp,
                                                                out);
   return (int)cudaGetLastError();
+}
+
+// One pass (0, 1 or 2) of the timing tracker on ``stream`` (track_kernel;
+// passes 0 and 2 as one cluster of kTrackCluster CTAs, pass 1 a CTA a block):
+// the signal x of n samples, n_sym data symbols from data_start in blocks of
+// block_syms, the timing measured below symbol n_valid_sym, the active-bin
+// channel (ch_re, ch_im), the loop's gains (g1, g2; 0 for pass 1), ``bins``
+// and ``twiddle`` the FFT's (Demod). ``state`` holds 2 + 2 * n_blocks floats,
+// written by one pass and read by the next; pass 2 writes ``bits`` (int8
+// [n_sym * nd * bps]) and the final tau into state[1].
+int amtpu_demodulate_tracked(const float* x, int n, int data_start, int n_sym, int block_syms, int n_valid_sym,
+                             const float* ch_re, const float* ch_im, const int* bins, const float* twiddle,
+                             const float* rx_active, const float* ce_known, const float* rx_demod,
+                             const int* data_pos, const int* pilot_pos, int fft, int cp, int n_active, int nd,
+                             int npi, int ncol_pad, float qam_scale, int bps, int pass, float g1, float g2,
+                             float* state, signed char* bits, cudaStream_t stream) {
+  Demod d = make_demod(rx_active, ce_known, rx_demod, data_pos, pilot_pos, fft, cp, n_active, nd, npi, ncol_pad,
+                       qam_scale, bps, bits);
+  d.bins = bins;
+  d.twiddle = twiddle;
+  if (d.fft == 0 || n < kFft || data_start < 0 || n_sym < 1 || block_syms < 1 || block_syms > kTrackRows ||
+      cp < 0 || cp > kMaxCp || nd + npi > 16 * 16 || bins == nullptr || reinterpret_cast<uintptr_t>(twiddle) % 8 != 0 ||
+      pass < 0 || pass > 2 || (pass == 1 && (g1 != 0.0f || g2 != 0.0f)))
+    return (int)cudaErrorInvalidValue;
+  const Track t{x, n, data_start, n_sym, block_syms, n_valid_sym, (n_sym + block_syms - 1) / block_syms,
+                ch_re, ch_im, g1, g2};
+  if (pass == 0) return (int)launch_track<0>(t, d, state, bits, kTrackCluster, kTrackCluster, stream);
+  if (pass == 1) return (int)launch_track<1>(t, d, state, bits, t.n_blocks, 1, stream);
+  return (int)launch_track<2>(t, d, state, bits, kTrackCluster, kTrackCluster, stream);
 }
 
 // Floats of kernel B's scratch for B frames: the peak's bit pattern [B].

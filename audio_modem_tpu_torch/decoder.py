@@ -44,7 +44,13 @@ from audio_modem_tpu_torch.framing import (
     parse_payload_bytes,
 )
 from audio_modem_tpu_torch.kernels import pinned, read_back, upload
-from audio_modem_tpu_torch.kernels.receive import decode_fused, decode_tail, split_tail_row, stream_demod
+from audio_modem_tpu_torch.kernels.receive import (
+    decode_fused,
+    decode_tail,
+    demodulate_tracked,
+    split_tail_row,
+    stream_demod,
+)
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote, soft_combine
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
 from audio_modem_tpu_torch.utils import trace
@@ -158,7 +164,8 @@ def _soft_core(signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, 
 def _tracked_core(
     signal: torch.Tensor, n_valid: int, start: int, mode: ModemMode, n_sym: int, n_valid_sym: "int | None"
 ):
-    """Timing-tracked demod of the data region (phy.demodulate_tracked), for
+    """Timing-tracked demod of the data region (``demodulate_tracked``: the
+    tracker's kernel on the card, phy.demodulate_tracked on the CPU), for
     long frames under clock drift. CE window and data timing both start
     TRACK_EARLY_BIAS samples into the CP: the refined start is exact only
     to +-1 sample, and a window that starts late leaks the next symbol's CP
@@ -174,15 +181,13 @@ def _tracked_core(
         ext = torch.nn.functional.pad(sig, (0, 8192))
         ce0 = min(max(start + 2 * sym - eb, 0), ext.shape[0] - sym)
         ch_re, ch_im = phy.estimate_channel(ext[ce0 : ce0 + sym], p)
-        return phy.demodulate_tracked(
-            ext, max(start + 3 * sym - eb, 0), n_sym, ch_re, ch_im, mode, n_valid_sym=n_valid_sym
-        )
+        return demodulate_tracked(ext, max(start + 3 * sym - eb, 0), n_sym, ch_re, ch_im, mode, n_valid_sym=n_valid_sym)
 
 
 def _track_span(n_sym: int, block_syms: int):
     """One call of the timing tracker: the ``tracked`` counter and a
     ``decode.track`` span over it (its ``decode.track.pass`` spans and the
-    ``track_blocks`` counter are ``phy.demodulate_tracked``'s)."""
+    ``track_blocks`` counter are ``demodulate_tracked``'s)."""
     trace.count("tracked")
     return trace.span("decode.track", n_sym=n_sym, blocks=-(-n_sym // block_syms), passes=len(phy.TRACK_GAINS))
 
@@ -500,7 +505,7 @@ def _chunk_tracked_core(frame: torch.Tensor, mode: ModemMode, n_sym: int, n_vali
     with _track_span(n_sym, TRACK_BLOCK_SYMS):
         ch_re, ch_im = _frame_channel(frame, mode, eb)
         ext = torch.nn.functional.pad(frame, (0, TRACK_BLOCK_SYMS * sym + 8192))
-        bits, _tau = phy.demodulate_tracked(
+        bits, _tau = demodulate_tracked(
             ext, 3 * sym - eb, n_sym, ch_re, ch_im, mode, block_syms=TRACK_BLOCK_SYMS, n_valid_sym=n_valid_sym
         )
     return bits

@@ -100,6 +100,15 @@ _SIGNATURES = {
         _P,                          # out: row
         _P,                          # stream
     ],
+    "demodulate_tracked": [
+        _P, _I, _I, _I, _I, _I,      # signal, n, data_start, n_sym, block_syms, n_valid_sym
+        _P, _P, _P, _P,              # ch_re, ch_im, demod_bins, fft_twiddle
+        _P, _P, _P, _P, _P,          # rx_active, ce_known, rx_demod, data_pos, pilot_pos
+        _I, _I, _I, _I, _I, _I, _F,  # fft, cp, n_active, nd, npi, ncol_pad, qam_scale
+        _I, _I, _F, _F,              # bps, pass, g1, g2
+        _P, _P,                      # state; out: bits
+        _P,                          # stream
+    ],
 }
 
 # amtpu_<name>_scratch_floats: the scratch a kernel needs, in floats.

@@ -27,8 +27,9 @@ pack votes through the same device function. ``stream_scan``
 (``stream_scan_kernel``) is the chunked receiver's coarse scan of a window,
 one CTA a row, into one row of (coarse, best metric) the host reads in one
 copy; ``stream_refine`` (``stream_refine_kernel``) its xcorr refine of one
-region, one CTA, into one row of (start, best metric). A, B and the
-streaming demod end in one
+region, one CTA, into one row of (start, best metric).
+``demodulate_tracked`` (``track_kernel``) is the decoder's timing tracker,
+one launch a pass of its loop. A, B and the streaming demod end in one
 tiled, register-blocked product (``demod_tile``) against
 ``Tables.rx_demod``, C in the FFT tile (``fft_demod_tile``, with
 ``Tables.demod_bins`` and ``Tables.fft_twiddle``); all four share the
@@ -59,6 +60,7 @@ from audio_modem_tpu_torch.kernels._build import launch, scratch_floats
 from audio_modem_tpu_torch.ops.bits import bits_to_bytes, majority_vote
 from audio_modem_tpu_torch.ops.constellations import bits_per_symbol, qam_scale
 from audio_modem_tpu_torch.tables import profile_tables
+from audio_modem_tpu_torch.utils import trace
 
 
 def _front_end(
@@ -350,6 +352,73 @@ def stream_refine(window: torch.Tensor, coarse_rel: int, n_valid: int, profile: 
         profile.symbol_len, profile.cp_len, out.data_ptr(),
     )
     return out
+
+
+TRACK_MAX_BLOCK = 64  # symbols a block of ``demodulate_tracked`` may have on the card (csrc/receive.cu kTrackRows)
+_ALL_SYMBOLS = 2**31 - 1  # n_valid_sym of a call that measures every symbol
+
+
+def _check_tracked(sig_ext: torch.Tensor, data_start: int, n_sym: int, ch_re: torch.Tensor, ch_im: torch.Tensor,
+                   profile: OfdmProfile, block_syms: int) -> None:
+    """Raise where the tracker's kernel does not take ``demodulate_tracked``'s
+    arguments."""
+    if sig_ext.dim() != 1:
+        raise ValueError(f"sig_ext: need [n], got {tuple(sig_ext.shape)}")
+    n = sig_ext.shape[0]
+    _check(sig_ext, "sig_ext", torch.float32, (n,))
+    _check(ch_re, "ch_re", torch.float32, (profile.num_active_subs,))
+    _check(ch_im, "ch_im", torch.float32, (profile.num_active_subs,))
+    if not 1 <= block_syms <= TRACK_MAX_BLOCK:
+        raise ValueError(f"block_syms: the kernel takes 1 to {TRACK_MAX_BLOCK} symbols a block, got {block_syms}")
+    if n_sym < 1 or data_start < 0 or not profile.fft_size <= n < 2**31:
+        raise ValueError(f"need a symbol, data_start >= 0 and {profile.fft_size} <= n < 2**31, got n_sym={n_sym}, "
+                         f"data_start={data_start}, n={n}")
+
+
+def demodulate_tracked(
+    sig_ext: torch.Tensor,
+    data_start: int,
+    n_sym: int,
+    ch_re: torch.Tensor,
+    ch_im: torch.Tensor,
+    mode: ModemMode,
+    block_syms: int = phy.TRACK_BLOCK,
+    n_valid_sym: "int | None" = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The timing-tracked demod: ``phy.demodulate_tracked``'s arguments and
+    result (bits int8 [n_sym * bits_per_symbol], the final tau as a 0-dim
+    float32), its plain version for CPU tensors. On the card the 1-D float32
+    signal ``sig_ext`` and the active-bin channel (``ch_re``, ``ch_im``
+    float32 [n_active]) go to ``track_kernel``: one launch a pass of the
+    loop (``phy.TRACK_GAINS``), the loop's state kept on the card between
+    them, so nothing is read back; blocks of 1 to ``TRACK_MAX_BLOCK``
+    symbols. Each pass is a ``decode.track.pass`` span (attr ``index``) and
+    counts its blocks in ``track_blocks``, as in the plain version; while the
+    span recorder is on, each pass waits for the card before its span
+    closes, so the spans cover the tracker's device work. The FFT
+    rounds apart from the plain matmul at the 1e-7 level of the spectrum, so
+    tau may differ from the plain version's by a few float32 ulps."""
+    if not runs_on_kernel(sig_ext, ch_re, ch_im):
+        return phy.demodulate_tracked(sig_ext, data_start, n_sym, ch_re, ch_im, mode, block_syms, n_valid_sym)
+    _check_tracked(sig_ext, data_start, n_sym, ch_re, ch_im, mode.profile, block_syms)
+    dev = sig_ext.device
+    tabs = profile_tables(mode, dev)
+    n_blocks = -(-n_sym // block_syms)
+    state = torch.empty(2 + 2 * n_blocks, dtype=torch.float32, device=dev)
+    bits = torch.empty(n_sym * bits_per_symbol(mode), dtype=torch.int8, device=dev)
+    nv = _ALL_SYMBOLS if n_valid_sym is None else min(int(n_valid_sym), _ALL_SYMBOLS)
+    for index, (g1, g2) in enumerate(phy.TRACK_GAINS):
+        with trace.span("decode.track.pass", index=index):
+            launch(
+                "demodulate_tracked", dev,
+                sig_ext.data_ptr(), sig_ext.shape[0], int(data_start), n_sym, block_syms, nv,
+                ch_re.data_ptr(), ch_im.data_ptr(), tabs.demod_bins.data_ptr(), tabs.fft_twiddle.data_ptr(),
+                *_table_args(mode, dev), index, g1, g2, state.data_ptr(), bits.data_ptr(),
+            )
+            if trace.enabled():  # the span ends once the pass has run on the card, not once it is queued
+                torch.cuda.current_stream(dev).synchronize()
+        trace.count("track_blocks", n_blocks)
+    return bits, state[1]
 
 
 def decode_chunks_fused(frames: torch.Tensor, mode: ModemMode, n_sym: int) -> torch.Tensor:

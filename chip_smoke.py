@@ -220,11 +220,21 @@ Phases, one line each:
      silent row), BPSK-REPEAT at its 512-byte chunks (64 x 8, the vote;
      every slot CRC-valid, in sequence), K = 1; start, flags and heads
      equal on every slot, fine within 1e-5, payload equal on detected slots
+ 27. the timing tracker (demodulate_tracked: track_kernel, three launches
+     a call) at the drift cell's shape: config 2's file at +100 ppm
+     (benchmark/reference/drift.py) and 18 dB through
+     api.decode(track_timing=True), exact, three launches; the tracker's
+     call (its 12,316 data symbols, 193 blocks of 64) against the plain
+     loop (phy.demodulate_tracked) on the card: bits equal on the frame's
+     symbols, tau within the cell's tau_gap (2e-4); both timed by CUDA
+     events in turns, each pass's device time from torch.profiler, the
+     bound of benchmark/reference/roofline_track.py and the share
 
 then the kernels as one JSON line (time, plain time, launches summed over
-the paths of phases 6, 9, 12, 13, 15 and 17-25, each counted from zero
+the paths of phases 6, 9, 12, 13, 15, 17-25 and 27, each counted from zero
 (kernel A's on the decode path of phases 9, 19, 20 and 25 among them;
-the tail's on the decode path of phases 9 and 17-25, its error the largest
+the tail's on the decode path of phases 9 and 17-25, the tracker's on
+phase 27's decode; the tail's error the largest
 |H| difference on the inputs that path_inputs kept)
 (kernel C's time and bound: every slot predicted, phase 7),
 the bound: bytes over the card's memory rate or float32 operations over
@@ -280,7 +290,7 @@ def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
     rows = []
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            name = re.search(r"\w+_kernel", ev.key)
+            name = re.search(r"\w+_kernel(?:<\d+>)?", ev.key)
             rows.append((name.group(0) if name else ev.key[:60], ev.self_device_time_total / reps / 1e3))
     return sorted(rows, key=lambda r: -r[1])
 
@@ -2084,6 +2094,80 @@ def compare_predicted(label: str, out: dict, ref: dict, strict: bool = True) -> 
                  + (f", {int(bad.sum())} detected slots whose payload parses in neither" if bool(bad.any()) else ""))
 
 
+def tracked_phase(dev, peaks, card: str) -> tuple[dict, str]:
+    """Phase 27: the timing tracker at the drift cell's shape (config 2's
+    file at +100 ppm, 18 dB) through api.decode(track_timing=True), then
+    its call against the plain loop on the same card tensors, timed.
+    Returns (the kernels line's row, the phase's line)."""
+    import numpy as np
+    import torch
+
+    from audio_modem_tpu_torch import MODES, api, decoder, framing, phy
+    from audio_modem_tpu_torch.kernels import launch_counts, receive, reset_launch_counts
+    from audio_modem_tpu_torch.ops.constellations import bits_per_symbol
+    from audio_modem_tpu_torch.roofline import bound_ms
+    from benchmark.reference import drift, roofline_track
+    from benchmark.reference.profiles import MODES as REFERENCE_MODES
+
+    mode = MODES["BPSK-REPEAT"]
+    data = np.random.default_rng(SEED + 2).bytes(32 * 1024 - 32)
+    tx = framing.build_transmit_signal(data, mode, "big.bin", device=dev).to(torch.float64)
+    x = drift.clock_drift(tx[None], 100.0)[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 27)
+    noise = torch.randn(x.shape, generator=gen, device=dev, dtype=torch.float64)
+    sig = (x + noise * ((x * x).mean() / 10 ** 1.8).sqrt()).to(torch.float32).cpu().numpy()
+    calls = []
+    real = decoder.demodulate_tracked
+
+    def tap(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    decoder.demodulate_tracked = tap
+    try:
+        reset_launch_counts()
+        res, _ = api.decode(sig, mode, track_timing=True, device=dev)
+    finally:
+        decoder.demodulate_tracked = real
+    if not (isinstance(res, framing.LegacyFrame) and res.crc_valid and res.data == data):
+        fail(f"phase 27: api.decode(track_timing=True) of config 2 at +100 ppm: "
+             f"{getattr(res, 'error', type(res).__name__)}")
+    launches = launch_counts()["demodulate_tracked"]
+    if len(calls) != 1 or launches != 3:
+        fail(f"phase 27: {len(calls)} tracker calls, {launches} launches (want 1, 3)")
+    (args, kwargs), = calls
+    n_sym, n_valid_sym = args[2], kwargs["n_valid_sym"]
+    run_k = lambda: receive.demodulate_tracked(*args, **kwargs)  # noqa: E731
+    run_p = lambda: phy.demodulate_tracked(*args, **kwargs)  # noqa: E731
+    (kb, kt), (pb, pt) = run_k(), run_p()
+    n = n_valid_sym * bits_per_symbol(mode)
+    flips = int((kb[:n] != pb[:n]).sum())
+    tau_gap = abs(float(kt) - float(pt))
+    if flips or tau_gap > 2e-4:
+        fail(f"phase 27: the tracker's kernel against the plain loop: {flips} bits differ on the frame's "
+             f"{n_valid_sym} symbols, tau {float(kt)!r} vs {float(pt)!r}")
+    pk1, kk1, kk2, pk2 = (time_ms(run_p, reps=3, warm=1), time_ms(run_k), time_ms(run_k),
+                          time_ms(run_p, reps=3, warm=1))
+    ms_k, ms_p = statistics.median([kk1, kk2]), statistics.median([pk1, pk2])
+    split = launch_split(run_k, reps=10)
+    device_ms = sum(ms for _, ms in split) or None
+    bound = bound_ms(*roofline_track.work_tracked(REFERENCE_MODES["BPSK-REPEAT"], n_sym), peaks)
+    n_blocks = -(-n_sym // phy.TRACK_BLOCK)
+    line = (f"api.decode(track_timing=True) of config 2 at +100 ppm, 18 dB: {len(data)} exact bytes, {launches} launches; "
+            f"the tracker's call ({n_sym} symbols, {n_blocks} blocks of {phy.TRACK_BLOCK}, {n_valid_sym} measured) "
+            f"against the plain loop on the card: 0 of {n} bits differ, tau {float(kt):.6f} vs {float(pt):.6f} "
+            f"(gap {tau_gap:.3e}); between events {ms_k:.3f} ms ({kk1:.3f}, {kk2:.3f}) vs plain {ms_p:.1f} ms "
+            f"({pk1:.1f}, {pk2:.1f}), {ms_p / ms_k:.0f}x; device time {device_ms or 0.0:.4f} ms "
+            f"({split or 'no profiler time'}); bound {bound[0]:.5f} ms ({bound[1]}), roofline share "
+            f"{bound[0] / (device_ms or ms_k):.3%} of the device time, {bound[0] / ms_k:.3%} between events")
+    row = {"name": "demodulate_tracked", "route": "cuda", "source": "audio_modem_tpu_torch/csrc/receive.cu",
+           "replaces": "audio_modem_tpu/phy.py:205 (lax.scan, no Pallas kernel)", "launches": launches,
+           "max_abs_err": tau_gap, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": None}
+    return row, line
+
+
 def main() -> None:
     if not (ROOT / "audio_modem_tpu_torch" / "csrc").is_dir():
         fail(f"no audio_modem_tpu_torch/csrc beside {Path(__file__).name}: run it from a checkout")
@@ -2575,9 +2659,13 @@ def main() -> None:
     err26, line = predicted_edges(dev, mode, windows, n_sym, cadence)
     print(f"phase 26 kernel C on edge inputs {card}: {line}", flush=True)
 
+    # 27. the timing tracker at the drift cell's shape
+    row27, line = tracked_phase(dev, peaks, card)
+    print(f"phase 27 timing tracker {card}: {line}", flush=True)
+
     batch_launches = (launches17 + launches18 + launches19 + launches20 + launches21 + launches22 + launches23
                       + launches24 + launches25)
-    print(f"phases 1-26 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-27 passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     source = "audio_modem_tpu_torch/csrc/receive.cu"
     print(json.dumps({"kernels": [
         {"name": "decode_fused", "route": "cuda", "source": source,
@@ -2619,6 +2707,7 @@ def main() -> None:
          "launches": counts12["stream_refine"] + counts13["stream_refine"],
          "max_abs_err": err_rf, "ms": ms_rf, "plain_ms": plain_ms_rf,
          "bound_ms": bound_rf[0], "bound_by": bound_rf[1], "library_ms": None},
+        row27,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

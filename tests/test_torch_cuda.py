@@ -29,6 +29,8 @@ from audio_modem_tpu_torch.tables import profile_tables
 from test_torch_stream_refine import REFINE_CASES, offset_window, refine_case, zero_padded
 from test_torch_stream_scan import SCAN_CASES, scan_case
 from test_torch_trace import _chunked_transfer
+from test_torch_tracked_kernel import chunk_case
+from test_torch_tracked_reference import LIMITS, _recording, _reference, _signal_bits
 
 torch.set_num_threads(2)
 
@@ -1200,3 +1202,131 @@ def test_kernel_c_packs_slot_0_as_the_plain_vote_and_pack(cuda_device, name, chu
                           device=cuda_device)
     out = receive.decode_predicted(x, nv, start0, ok0, mode, n_sym, 2, cadence, bits0)
     assert torch.equal(out["packed"][:, 0], receive.vote_pack(ok0, start0, bits0, mode))
+
+
+# (frame bytes, seed, ppm): ~2 KB and ~8 KB BPSK-REPEAT frames at +-100 ppm
+TRACK_CASES = [(2048, 7, 100.0), (2048, 8, -100.0), (8192, 16, -100.0), (8192, 17, 100.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bytes, seed, ppm", TRACK_CASES)
+def test_tracked_kernel_matches_the_float64_reference(cuda_device, n_bytes, seed, ppm, monkeypatch):
+    """``api.decode(track_timing=True)`` on the card of a drifted BPSK-REPEAT
+    frame at 18 dB: exact; the tracker's one call is three launches of its
+    kernel and never the plain loop; its bits are the float64 reference's
+    (``benchmark/reference/tracked.py``) on every symbol of the frame, and
+    its final tau lies within the drift cell's ``tau_gap`` of the
+    reference's."""
+    from audio_modem_tpu_torch.utils import trace
+
+    sig, data = _recording(seed, ppm, n_bytes=n_bytes)
+    api.decode(sig, "BPSK-REPEAT", track_timing=True, device=cuda_device)  # builds and loads the kernels
+    calls = []
+    real = decoder._tracked_core
+
+    def tap(signal, n_valid, start, mode, n_sym, n_valid_sym):
+        bits, tau = real(signal, n_valid, start, mode, n_sym, n_valid_sym)
+        calls.append(({"x": signal.clone(), "n_valid": n_valid, "start": start, "n_sym": n_sym,
+                       "n_valid_sym": n_valid_sym}, bits, float(tau)))
+        return bits, tau
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a card tensor reached the plain loop")
+
+    monkeypatch.setattr(decoder, "_tracked_core", tap)
+    monkeypatch.setattr(phy, "demodulate_tracked", plain)
+    reset_launch_counts()
+    trace.drain()
+    trace.enable()
+    try:
+        result, _ = api.decode(sig, "BPSK-REPEAT", track_timing=True, device=cuda_device)
+    finally:
+        trace.disable()
+    _, counters = trace.drain()
+    assert isinstance(result, framing.LegacyFrame) and result.crc_valid and result.data == data
+    assert counters["tracked"] == 1 and launch_counts()["demodulate_tracked"] == 3 * counters["tracked"]
+    [(call, bits, tau)] = calls
+    n = _signal_bits(data)
+    assert call["n_valid_sym"] * MODES["BPSK-REPEAT"].bits_per_symbol == n
+    ref_bits, ref_tau = _reference(call)
+    assert torch.equal(bits[:n].cpu().to(torch.int64), ref_bits[:n].cpu())
+    assert abs(tau - ref_tau) <= LIMITS["tau_gap"], (tau, ref_tau)
+
+
+@pytest.mark.cuda
+def test_tracked_kernel_matches_plain_on_a_chunk_frame(cuda_device):
+    """The chunk path's call (a drifted 2048-byte QPSK data chunk frame,
+    ``TRACK_BLOCK_SYMS``-symbol blocks, the bucket's tail out of the
+    measurement) on the card: three launches, the plain loop's bits on the
+    chunk's symbols, tau within the drift cell's ``tau_gap`` of the plain
+    loop's."""
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in chunk_case())
+    reset_launch_counts()
+    bits, tau = receive.demodulate_tracked(*args)
+    assert launch_counts()["demodulate_tracked"] == 3
+    pbits, ptau = phy.demodulate_tracked(*args)
+    n = args[-1] * bits_per_symbol(args[5])
+    assert bits.shape == pbits.shape and torch.equal(bits[:n], pbits[:n])
+    assert abs(float(tau) - float(ptau)) <= LIMITS["tau_gap"], (float(tau), float(ptau))
+
+
+@pytest.mark.cuda
+def test_tracked_kernel_spans_cover_its_device_work(cuda_device):
+    """While the span recorder is on, each ``decode.track.pass`` span closes
+    once its pass has run on the card: the three spans reach from before
+    the first launch to after the last pass, so they cover the device time
+    between events around the call, and the stream is idle on return."""
+    from audio_modem_tpu_torch.utils import trace
+
+    mode = MODES["BPSK-REPEAT"]
+    n_sym = 4096
+    x = torch.randn(n_sym * mode.profile.symbol_len + 20_000, device=cuda_device)
+    ch = torch.ones(mode.profile.num_active_subs, device=cuda_device)
+    receive.demodulate_tracked(x, 0, n_sym, ch, ch, mode)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    trace.drain()
+    trace.enable()
+    try:
+        t0.record()
+        receive.demodulate_tracked(x, 0, n_sym, ch, ch, mode)
+        idle = torch.cuda.current_stream(cuda_device).query()
+        t1.record()
+    finally:
+        trace.disable()
+    spans, counters = trace.drain()
+    torch.cuda.synchronize()
+    passes = [s for s in spans if s.name == "decode.track.pass"]
+    assert [s.attrs["index"] for s in passes] == [0, 1, 2] and idle
+    assert counters["track_blocks"] == 3 * -(-n_sym // phy.TRACK_BLOCK)
+    covered_ms = (passes[-1].end_ns - passes[0].start_ns) / 1e6
+    assert covered_ms >= 0.9 * t0.elapsed_time(t1), (covered_ms, t0.elapsed_time(t1))
+
+
+@pytest.mark.cuda
+def test_tracked_kernel_rejects_what_it_does_not_take(cuda_device):
+    """The wrapper launches for what the kernel takes (an all-zero signal
+    gives the plain loop's bits and tau) and raises on a float64 or
+    non-contiguous signal, a block it has no rows for, a short channel and
+    a channel on the CPU."""
+    mode = MODES["BPSK-REPEAT"]
+    x = torch.zeros(20_000, device=cuda_device)
+    ch = torch.ones(mode.profile.num_active_subs, device=cuda_device)
+    reset_launch_counts()
+    bits, tau = receive.demodulate_tracked(x, 0, 16, ch, ch, mode)
+    pbits, ptau = phy.demodulate_tracked(x, 0, 16, ch, ch, mode)
+    assert launch_counts()["demodulate_tracked"] == 3
+    assert torch.equal(bits, pbits) and float(tau) == float(ptau)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(x.double(), 0, 16, ch, ch, mode)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(torch.zeros(40_000, device=cuda_device)[::2], 0, 16, ch, ch, mode)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(x, 0, 16, ch, ch, mode, block_syms=receive.TRACK_MAX_BLOCK + 1)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(x, 0, 16, ch, ch, mode, block_syms=0)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(x, 0, 16, ch[:-1], ch[:-1], mode)
+    with pytest.raises(ValueError):
+        receive.demodulate_tracked(x, 0, 16, ch.cpu(), ch.cpu(), mode)
+    assert launch_counts()["demodulate_tracked"] == 3
